@@ -1,0 +1,54 @@
+"""Weights from the flax Llama (`ray_tpu.models.llama`) to the port.
+
+Takes the flax parameter tree as nested dicts of arrays (anything
+`numpy.asarray` reads) and returns a `state_dict` for
+`ray_tpu_torch.models.LlamaForCausalLM`, in float32; `load_state_dict`
+casts to the model's `param_dtype`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _tensor(x) -> torch.Tensor:
+    # float32 first: numpy has no bfloat16 that torch reads, and the
+    # widening is exact.
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def llama_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax layouts to torch ones:
+
+    - `embed_tokens/embedding` [V, H] stays [V, H];
+    - `{q,k,v}_proj/kernel` [in, heads, hd] becomes [heads * hd, in];
+    - `o_proj/kernel` [heads, hd, out] becomes [out, heads * hd];
+    - `{gate,up,down}_proj/kernel` [in, out] becomes [out, in];
+    - `*_norm/scale` stays as it is;
+    - `lm_head/kernel` [H, V] becomes [V, H].
+    """
+    p = params.get("params", params)
+    out = {"embed_tokens.weight": _tensor(p["embed_tokens"]["embedding"]),
+           "final_norm.scale": _tensor(p["final_norm"]["scale"])}
+    if "lm_head" in p:
+        out["lm_head.weight"] = _tensor(p["lm_head"]["kernel"]).T.contiguous()
+    n_layers = sum(1 for name in p if name.startswith("layers_"))
+    for i in range(n_layers):
+        layer, pre = p[f"layers_{i}"], f"layers.{i}."
+        for norm in ("input_norm", "post_attn_norm"):
+            out[pre + norm + ".scale"] = _tensor(layer[norm]["scale"])
+        attn = layer["attn"]
+        for name in ("q_proj", "k_proj", "v_proj"):
+            kernel = _tensor(attn[name]["kernel"])  # [in, heads, hd]
+            out[f"{pre}attn.{name}.weight"] = (
+                kernel.reshape(kernel.shape[0], -1).T.contiguous()
+            )
+        o = _tensor(attn["o_proj"]["kernel"])  # [heads, hd, out]
+        out[pre + "attn.o_proj.weight"] = o.reshape(-1, o.shape[-1]).T.contiguous()
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            out[f"{pre}mlp.{name}.weight"] = (
+                _tensor(layer["mlp"][name]["kernel"]).T.contiguous()
+            )
+    return out

@@ -1,0 +1,89 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes its own shared library with a plain C
+interface, compiled by `nvcc` for Hopper (`sm_90a`). All sources build
+in parallel, one `nvcc` each. A library is named after the hash of its
+source, the shared headers and the flags, so an edited source rebuilds
+and an unchanged one is loaded as it is. Libraries go to
+`ray_tpu_torch/_build/`, which git ignores. A failed build raises: there
+is no retry and no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(source: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile every source not yet built (in parallel), load all of
+    them, and return the libraries by source name."""
+    with _lock:
+        sources = sorted(CSRC.glob("*.cu"))
+        todo = {s: _library_path(s) for s in sources if s.stem not in _libs}
+        pending = []
+        for src, lib in todo.items():
+            if lib.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".tmp{os.getpid()}")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            pending.append((src, lib, tmp, proc))
+        failures = []
+        for src, lib, tmp, proc in pending:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{src.name}:\n{out}")
+            else:
+                os.replace(tmp, lib)
+        if failures:
+            raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        for src, lib in todo.items():
+            _libs[src.stem] = ctypes.CDLL(str(lib))
+        return dict(_libs)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<name>.cu`."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = build()[name]
+    return lib
