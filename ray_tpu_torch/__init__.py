@@ -1,8 +1,10 @@
 """ray_tpu_torch: the PyTorch and CUDA port of ray_tpu, for NVIDIA Hopper.
 
 It grows slice by slice beside `ray_tpu`, which stays the reference, and
-imports nothing of it. This slice is the Llama training step:
-`models.llama` on the flash-attention kernels of `ops.attention`, driven
-by `bench` (`python -m ray_tpu_torch.bench`).
+imports nothing of it. Slice 1 is the Llama training step: `models.llama`
+on the flash-attention kernels of `ops.attention`. Slice 2 is the
+Mixtral sparse-MoE training step: `models.mixtral` on the grouped-matmul
+kernels of `ops.gmm`. `bench` (`python -m ray_tpu_torch.bench`) drives
+both; `profile` breaks a step's device time down by kernel.
 """
 from ._device import resolve_device  # noqa: F401

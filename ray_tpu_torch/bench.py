@@ -1,11 +1,15 @@
-"""Train-step throughput and MFU of the Llama port on one CUDA card.
+"""Train-step throughput and MFU of the port on one CUDA card.
 
-The port of `bench_model` in the repo-root `bench.py`: the Llama forward,
-loss, backward and AdamW update, at its shapes (llama-1b, batch 2,
-sequence 2048, bf16 parameters, `targets = roll(ids, -1)`, ids from
-`np.random.RandomState(0)`). Prints one JSON line.
+The port of the repo-root `bench.py`: forward, loss, backward and AdamW,
+at its shapes (batch 2, sequence 2048, bf16 parameters, `targets =
+roll(ids, -1)`, ids from `np.random.RandomState(0)`). The Llama point
+(llama-1b) comes first; then, as the reference's `BENCH_MOE=1` phase,
+mixtral-small (8 experts, top-2) with `moe_lm_loss`, its dispatch chosen
+by `resolve_moe_dispatch` unless forced, MFU over the active parameters.
+Prints one JSON line.
 
     python -m ray_tpu_torch.bench [--model llama-1b] [--steps 10]
+        [--moe-model mixtral-small] [--moe-dispatch auto] [--no-moe]
 """
 from __future__ import annotations
 
@@ -13,17 +17,20 @@ import argparse
 import json
 import time
 from dataclasses import replace
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ._device import card_description, resolve_device
-from .models.llama import (
-    CONFIGS,
-    LlamaForCausalLM,
-    causal_lm_loss,
-    chunked_causal_lm_loss,
+from .models.llama import CONFIGS, LlamaForCausalLM, causal_lm_loss
+from .models.mixtral import CONFIGS as MIXTRAL_CONFIGS
+from .models.mixtral import (
+    DISPATCHES,
+    PROBE_SECONDS,
+    MixtralForCausalLM,
+    moe_lm_loss,
+    resolve_moe_dispatch,
 )
 
 # Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet).
@@ -44,26 +51,37 @@ def make_optimizer(model: torch.nn.Module) -> torch.optim.AdamW:
                              eps=1e-8, weight_decay=1e-4)
 
 
-def train_step(model, optimizer, ids, targets, *, chunked_loss=False):
+def lm_loss(model, ids, targets):
+    return causal_lm_loss(model(ids), targets)
+
+
+LossFn = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def train_step(model, optimizer, ids, targets, loss_fn: LossFn = lm_loss):
     """One forward, loss, backward and update; returns the loss (on the
     device, not synchronised)."""
     optimizer.zero_grad(set_to_none=True)
-    if chunked_loss:
-        loss = chunked_causal_lm_loss(model, ids, targets)
-    else:
-        loss = causal_lm_loss(model(ids), targets)
+    loss = loss_fn(model, ids, targets)
     loss.backward()
     optimizer.step()
     return loss.detach()
 
 
-def bench_model(model: LlamaForCausalLM, batch: int, seq: int, steps: int,
+def bench_model(model: torch.nn.Module, batch: int, seq: int, steps: int,
                 peak_flops: float = H100_BF16_PEAK_FLOPS,
-                chunked_loss: bool = False) -> Dict[str, object]:
+                loss_fn: Optional[LossFn] = None,
+                n_params: Optional[int] = None) -> Dict[str, object]:
     """One warm-up step, then `steps` timed steps on one repeated batch.
-    Returns tokens/s, step time, MFU against `peak_flops`, and the loss of
-    every step, warm-up first."""
+    `loss_fn(model, ids, targets)` defaults to the causal LM loss; MFU
+    counts `n_params` (default `cfg.num_params()`) against `peak_flops`.
+    Returns tokens/s, step time, MFU, and the loss of every step, warm-up
+    first."""
     cfg = model.cfg
+    if loss_fn is None:
+        loss_fn = lm_loss
+    if n_params is None:
+        n_params = cfg.num_params()
     device = next(model.parameters()).device
     rng = np.random.RandomState(0)
     ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)),
@@ -71,25 +89,50 @@ def bench_model(model: LlamaForCausalLM, batch: int, seq: int, steps: int,
     targets = torch.roll(ids, -1, dims=1)
     optimizer = make_optimizer(model)
 
-    losses: List[torch.Tensor] = [
-        train_step(model, optimizer, ids, targets, chunked_loss=chunked_loss)
-    ]
+    losses: List[torch.Tensor] = [train_step(model, optimizer, ids, targets, loss_fn)]
     float(losses[0])  # waits for the warm-up step
     t0 = time.perf_counter()
     for _ in range(steps):
-        losses.append(
-            train_step(model, optimizer, ids, targets, chunked_loss=chunked_loss)
-        )
+        losses.append(train_step(model, optimizer, ids, targets, loss_fn))
     float(losses[-1])  # waits for the last step
     dt = time.perf_counter() - t0
 
     tok_per_s = batch * seq * steps / dt
-    mfu = tok_per_s * flops_per_token(cfg.num_params(), cfg, seq) / peak_flops
+    mfu = tok_per_s * flops_per_token(n_params, cfg, seq) / peak_flops
     return {
         "tokens_per_s": tok_per_s,
         "step_ms": dt / steps * 1e3,
         "mfu": mfu,
         "losses": [float(x) for x in losses],
+    }
+
+
+def bench_moe(name: str, dispatch: str, batch: int, seq: int, steps: int,
+              peak_flops: float, device: torch.device) -> Dict[str, object]:
+    """The reference's MoE phase: `name` in bf16 parameters, its dispatch
+    forced or ("auto") resolved by the measured probe, MFU over the active
+    parameters per token. `moe_probe_ms` holds the probe's median step of
+    each backend where this call ran it, else None (forced, or resolved
+    by the env override or the disk cache)."""
+    cfg = replace(MIXTRAL_CONFIGS[name], param_dtype=torch.bfloat16,
+                  moe_dispatch=dispatch)
+    probed_before = set(PROBE_SECONDS)
+    cfg = replace(cfg, moe_dispatch=resolve_moe_dispatch(cfg, tokens=batch * seq,
+                                                         device=device))
+    probe = [{k: t * 1e3 for k, t in s.items()}
+             for key, s in PROBE_SECONDS.items() if key not in probed_before]
+    r = bench_model(MixtralForCausalLM(cfg, device=device), batch, seq, steps,
+                    peak_flops, loss_fn=moe_lm_loss,
+                    n_params=cfg.active_params_per_token())
+    return {
+        "moe_model": f"{name} ({cfg.num_experts} experts, top-{cfg.num_experts_per_tok})",
+        "moe_dispatch": cfg.moe_dispatch,
+        "moe_probe_ms": probe[0] if probe else None,
+        "moe_tokens_per_s": r["tokens_per_s"],
+        "moe_step_ms": r["step_ms"],
+        "moe_mfu_active": r["mfu"],
+        "moe_loss": r["losses"][-1],
+        "moe_losses": r["losses"],
     }
 
 
@@ -102,12 +145,22 @@ def main(argv=None) -> int:
     ap.add_argument("--peak-flops", type=float, default=H100_BF16_PEAK_FLOPS)
     ap.add_argument("--device", default=None,
                     help="torch device; the CUDA card when not given")
+    ap.add_argument("--moe-model", default="mixtral-small", choices=sorted(MIXTRAL_CONFIGS))
+    ap.add_argument("--moe-dispatch", default="auto", choices=("auto",) + DISPATCHES,
+                    help="force an MoE dispatch; 'auto' runs the measured probe")
+    ap.add_argument("--no-moe", action="store_true", help="skip the MoE phase")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = replace(CONFIGS[args.model], param_dtype=torch.bfloat16)
-    model = LlamaForCausalLM(cfg, device=device)
-    r = bench_model(model, args.batch, args.seq, args.steps, args.peak_flops)
+    r = bench_model(LlamaForCausalLM(cfg, device=device), args.batch, args.seq,
+                    args.steps, args.peak_flops)
+    moe = {}
+    if not args.no_moe:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # the Llama model and its optimizer are gone
+        moe = bench_moe(args.moe_model, args.moe_dispatch, args.batch, args.seq,
+                        args.steps, args.peak_flops, device)
     card = card_description() if device.type == "cuda" else "cpu"
     print(json.dumps({
         "metric": f"{args.model} train step tokens/s (b{args.batch} "
@@ -118,6 +171,7 @@ def main(argv=None) -> int:
         "mfu": r["mfu"],
         "peak_flops": args.peak_flops,
         "losses": r["losses"],
+        **moe,
         "device": card,
     }), flush=True)
     return 0

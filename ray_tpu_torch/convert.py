@@ -1,9 +1,10 @@
-"""Weights from the flax Llama (`ray_tpu.models.llama`) to the port.
+"""Weights from the flax Llama and Mixtral (`ray_tpu.models.llama`,
+`ray_tpu.models.mixtral`) to the port.
 
 Takes the flax parameter tree as nested dicts of arrays (anything
 `numpy.asarray` reads) and returns a `state_dict` for
-`ray_tpu_torch.models.LlamaForCausalLM`, in float32; `load_state_dict`
-casts to the model's `param_dtype`.
+`ray_tpu_torch.models.LlamaForCausalLM` or `MixtralForCausalLM`, in
+float32; `load_state_dict` casts to the model's `param_dtype`.
 """
 from __future__ import annotations
 
@@ -19,23 +20,11 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def llama_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax layouts to torch ones:
-
-    - `embed_tokens/embedding` [V, H] stays [V, H];
-    - `{q,k,v}_proj/kernel` [in, heads, hd] becomes [heads * hd, in];
-    - `o_proj/kernel` [heads, hd, out] becomes [out, heads * hd];
-    - `{gate,up,down}_proj/kernel` [in, out] becomes [out, in];
-    - `*_norm/scale` stays as it is;
-    - `lm_head/kernel` [H, V] becomes [V, H].
-    """
-    p = params.get("params", params)
+def _decoder_params_from_flax(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Embedding, final norm, and each layer's norms and attention."""
     out = {"embed_tokens.weight": _tensor(p["embed_tokens"]["embedding"]),
            "final_norm.scale": _tensor(p["final_norm"]["scale"])}
-    if "lm_head" in p:
-        out["lm_head.weight"] = _tensor(p["lm_head"]["kernel"]).T.contiguous()
-    n_layers = sum(1 for name in p if name.startswith("layers_"))
-    for i in range(n_layers):
+    for i in range(_num_layers(p)):
         layer, pre = p[f"layers_{i}"], f"layers.{i}."
         for norm in ("input_norm", "post_attn_norm"):
             out[pre + norm + ".scale"] = _tensor(layer[norm]["scale"])
@@ -47,8 +36,49 @@ def llama_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             )
         o = _tensor(attn["o_proj"]["kernel"])  # [heads, hd, out]
         out[pre + "attn.o_proj.weight"] = o.reshape(-1, o.shape[-1]).T.contiguous()
+    return out
+
+
+def _num_layers(p: Mapping[str, Any]) -> int:
+    return sum(1 for name in p if name.startswith("layers_"))
+
+
+def llama_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax layouts to torch ones:
+
+    - `embed_tokens/embedding` [V, H] stays [V, H];
+    - `{q,k,v}_proj/kernel` [in, heads, hd] becomes [heads * hd, in];
+    - `o_proj/kernel` [heads, hd, out] becomes [out, heads * hd];
+    - `{gate,up,down}_proj/kernel` [in, out] becomes [out, in];
+    - `*_norm/scale` stays as it is;
+    - `lm_head/kernel` [H, V] becomes [V, H].
+    """
+    p = params.get("params", params)
+    out = _decoder_params_from_flax(p)
+    if "lm_head" in p:
+        out["lm_head.weight"] = _tensor(p["lm_head"]["kernel"]).T.contiguous()
+    for i in range(_num_layers(p)):
+        mlp = p[f"layers_{i}"]["mlp"]
         for name in ("gate_proj", "up_proj", "down_proj"):
-            out[f"{pre}mlp.{name}.weight"] = (
-                _tensor(layer["mlp"][name]["kernel"]).T.contiguous()
-            )
+            out[f"layers.{i}.mlp.{name}.weight"] = _tensor(mlp[name]["kernel"]).T.contiguous()
+    return out
+
+
+def mixtral_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """As `llama_params_from_flax` for the embedding, norms and attention;
+    for each MoE layer:
+
+    - `moe/router/kernel` [H, E] becomes [E, H];
+    - `moe/w_gate`, `moe/w_up` [E, H, F] and `moe/w_down` [E, F, H] stay
+      as they are (the grouped matmul's rhs layout).
+
+    The head is the embedding (always tied), so there is no `lm_head`.
+    """
+    p = params.get("params", params)
+    out = _decoder_params_from_flax(p)
+    for i in range(_num_layers(p)):
+        moe, pre = p[f"layers_{i}"]["moe"], f"layers.{i}.moe."
+        out[pre + "router.weight"] = _tensor(moe["router"]["kernel"]).T.contiguous()
+        for name in ("w_gate", "w_up", "w_down"):
+            out[pre + name] = _tensor(moe[name])
     return out

@@ -6,3 +6,11 @@ from .llama import (  # noqa: F401
     chunked_causal_lm_loss,
     lm_head_weight,
 )
+from .mixtral import CONFIGS as MIXTRAL_CONFIGS  # noqa: F401
+from .mixtral import (  # noqa: F401
+    MixtralConfig,
+    MixtralForCausalLM,
+    MoELayer,
+    moe_lm_loss,
+    resolve_moe_dispatch,
+)

@@ -104,6 +104,17 @@ def _remat_context(cfg: LlamaConfig):
     return None
 
 
+def run_layer(cfg: LlamaConfig, layer: nn.Module, x, positions):
+    """`layer(x, positions)`, checkpointed under the config's remat policy
+    when gradients are on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer(x, positions)
+    context = _remat_context(cfg)
+    if context is None:
+        return checkpoint(layer, x, positions, use_reentrant=False)
+    return checkpoint(layer, x, positions, use_reentrant=False, context_fn=context)
+
+
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embeddings, half-split, angles in float32. x [B, H, T, D],
     positions [B, T]."""
@@ -213,6 +224,18 @@ class DecoderLayer(nn.Module):
         return h + self.mlp(self.post_attn_norm(h))
 
 
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Normal with std 1/sqrt(fan_in) for every `Dense` and `Embed` weight
+    ([out, in] or [V, H]), ones for every `RMSNorm` scale."""
+    for module in model.modules():
+        if isinstance(module, (Dense, Embed)):
+            std = module.weight.shape[1] ** -0.5
+            module.weight.normal_(0.0, std, generator=generator)
+        elif isinstance(module, RMSNorm):
+            module.scale.fill_(1.0)
+
+
 class LlamaForCausalLM(nn.Module):
     """The causal LM. Parameters are made on `device` (the CUDA card
     unless the caller passes one) from `generator`, seed 0 by default:
@@ -240,14 +263,8 @@ class LlamaForCausalLM(nn.Module):
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for module in self.modules():
-            if isinstance(module, (Dense, Embed)):
-                std = module.weight.shape[1] ** -0.5  # [out, in] or [V, H]
-                module.weight.normal_(0.0, std, generator=generator)
-            elif isinstance(module, RMSNorm):
-                module.scale.fill_(1.0)
+        init_parameters(self, generator)
 
     def forward(self, input_ids, positions=None, return_hidden=False):
         """Logits [B, T, V], or with `return_hidden=True` the final-norm
@@ -259,16 +276,8 @@ class LlamaForCausalLM(nn.Module):
                 input_ids.shape[1], device=input_ids.device
             ).expand(input_ids.shape)
         x = self.embed_tokens(input_ids)
-        remat = cfg.remat and torch.is_grad_enabled()
-        context = _remat_context(cfg)
         for layer in self.layers:
-            if not remat:
-                x = layer(x, positions)
-            elif context is None:
-                x = checkpoint(layer, x, positions, use_reentrant=False)
-            else:
-                x = checkpoint(layer, x, positions, use_reentrant=False,
-                               context_fn=context)
+            x = run_layer(cfg, layer, x, positions)
         x = self.final_norm(x)
         if return_hidden:
             return x

@@ -7,6 +7,10 @@ source, the shared headers and the flags, so an edited source rebuilds
 and an unchanged one is loaded as it is. Libraries go to
 `ray_tpu_torch/_build/`, which git ignores. A failed build raises: there
 is no retry and no fallback.
+
+The helpers below call a kernel's C entry point, which launches on
+PyTorch's current stream and returns a `cudaError_t`; `launch` raises if
+it is not 0.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -28,6 +34,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -87,3 +94,41 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = build()[name]
     return lib
+
+
+def launch(lib_name: str, fn_name: str, argtypes: Sequence, *args) -> None:
+    """Calls `fn_name` of `csrc/<lib_name>.cu` and raises with CUDA's
+    message if it returns an error."""
+    fn = _functions.get((lib_name, fn_name))
+    if fn is None:
+        lib = library(lib_name)
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _functions[(lib_name, fn_name)] = fn
+    err = fn(*args)
+    if err != 0:
+        msg = library(lib_name).kernel_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous, with its data 16-byte aligned (the kernels read
+    and write 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors (got {t.device})")

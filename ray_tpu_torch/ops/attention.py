@@ -25,6 +25,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from ._build import aligned as _aligned
+from ._build import ptr as _ptr
+from ._build import require_cuda as _require_cuda
+from ._build import stream as _stream
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -121,27 +125,10 @@ _ARGTYPES = {
 }
 _LIBRARY = {"flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd",
             "flash_bwd_dq": "flash_bwd"}
-_functions: Dict[str, ctypes._CFuncPtr] = {}
-
-
-def _kernel(name: str):
-    fn = _functions.get(name)
-    if fn is None:
-        lib = _build.library(_LIBRARY[name])
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
-        _functions[name] = fn
-    return fn
 
 
 def _launch(name: str, *args) -> None:
-    err = _kernel(name)(*args)
-    if err != 0:
-        msg = _build.library(_LIBRARY[name]).flash_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+    _build.launch(_LIBRARY[name], name, _ARGTYPES[name], *args)
     LAUNCHES[name] += 1
 
 
@@ -169,26 +156,6 @@ def _check_kernel_args(q, k, v, *rows_f32) -> Tuple[int, int, int, int]:
         if t.dtype != torch.float32 or t.shape != (bh, tq):
             raise ValueError("lse and delta must be float32 [BH, Tq]")
     return bh, tq, tk, d
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """`t` contiguous, with its data 16-byte aligned (the kernels read
-    and write 16 bytes at a time)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or CPU tensors (got {t.device})")
 
 
 def _flash_fwd_cuda(q, k, v, *, causal, sm_scale):

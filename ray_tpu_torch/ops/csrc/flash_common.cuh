@@ -269,6 +269,6 @@ struct AccTile {
 }  // namespace flash
 
 // Every library carries its own copy: each .cu is built alone.
-extern "C" const char* flash_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

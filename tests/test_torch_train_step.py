@@ -90,8 +90,8 @@ def test_optimizer_matches_the_reference_hyperparameters():
 @pytest.mark.parametrize("chunked", [False, True])
 def test_bench_model_on_cpu_loss_falls(chunked):
     model = tllama.LlamaForCausalLM(tllama.CONFIGS["llama-tiny"], device="cpu")
-    r = bench.bench_model(model, batch=2, seq=32, steps=2, peak_flops=1e12,
-                          chunked_loss=chunked)
+    loss_fn = tllama.chunked_causal_lm_loss if chunked else None
+    r = bench.bench_model(model, batch=2, seq=32, steps=2, peak_flops=1e12, loss_fn=loss_fn)
     assert len(r["losses"]) == 3 and all(np.isfinite(r["losses"]))
     assert r["losses"][-1] < r["losses"][0]
     assert r["tokens_per_s"] > 0 and r["step_ms"] > 0
@@ -107,3 +107,18 @@ def test_bench_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.main(["--model", "llama-tiny", "--steps", "1"])
+
+
+def test_profile_busy_time_is_the_union_of_kernel_intervals():
+    from ray_tpu_torch.profile import busy_us
+
+    assert busy_us([]) == 0
+    assert busy_us([(30, 40), (0, 10), (5, 20), (35, 36)]) == 30
+
+
+def test_profile_without_a_card_raises(monkeypatch):
+    from ray_tpu_torch import profile
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile.main(["--model", "mixtral-tiny"])
