@@ -7,13 +7,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. device: the card's name and power limit;
 2. build: every kernel source in `ray_tpu_torch/ops/csrc/`, in parallel;
+   the registers, spills and shared memory of the flash backward's
+   kernels, from ptxas; the bf16 (Hopper) K2 and K3 must not spill;
 3. attention kernels: K1 (forward), K2 (dK, dV) and K3 (dQ) against their
    plain PyTorch versions, which run in float32 on the same bf16-rounded
    inputs, at the Llama path's shape (D 128), the Mixtral path's (D 64,
-   and its GQA of 16 heads over 8) and at ragged, non-causal, float32 and
-   GQA cases, element-wise and by normwise relative error per tile;
-   times at both paths' shapes of each kernel, its plain version and a
-   library call as a yardstick the port never calls:
+   and its GQA of 16 heads over 8) and at ragged, non-causal, float32,
+   GQA and bf16 edge cases (D 72 and 96 on zero-filled columns, ragged
+   Tq < Tk, one tile), element-wise and by normwise relative error per
+   tile; K2 and K3 give bitwise-equal outputs over two launches; times at
+   both paths' shapes of each kernel, its plain version and a library
+   call as a yardstick the port never calls:
    `scaled_dot_product_attention` for K1, PyTorch's flash-attention
    backward for the K2 + K3 pair;
 4. grouped-matmul kernels: K4 (gmm, and its dlhs form on transposed
@@ -182,6 +186,50 @@ def bound(bytes_moved: float, flops: float, flops_rate: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
+def ptxas_kernels(report: str):
+    """[(kernel, registers, spill bytes)] from an `nvcc -Xptxas -v`
+    report; a kernel of namespace `flash` is named as in its source, with
+    its template argument (`dkv_sm90<128>`)."""
+    import re
+
+    found, name, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            m = re.match(r"_ZN5flash(\d+)(\w+)", name)
+            if m:
+                n, rest = int(m.group(1)), m.group(2)
+                t = re.match(r"ILi(\d+)E", rest[n:])
+                name = rest[:n] + (f"<{t.group(1)}>" if t else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.append((name, int(m.group(1)), spill))
+    return found
+
+
+def report_flash_bwd_build(build) -> None:
+    """Prints the flash backward kernels' registers, spills and (bf16)
+    shared memory per block; fails if a bf16 kernel spills."""
+    import ctypes
+
+    smem = build.library("flash_bwd").flash_bwd_sm90_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    parts = []
+    for name, regs, spill in ptxas_kernels(build.ptxas_report("flash_bwd")):
+        text = f"{name} {regs} registers, {spill} spill bytes"
+        if "sm90" in name:
+            check(spill == 0, f"ptxas: {name} spills {spill} bytes")
+            width = int(name.split("<")[1].rstrip(">"))
+            text += f", {smem(width, int(name.startswith('dq')))} bytes of shared memory"
+        parts.append(text)
+    check(sum("sm90" in p for p in parts) == 4, f"ptxas report of flash_bwd.cu: {parts}")
+    print("ptxas flash_bwd.cu: " + "; ".join(parts), flush=True)
+
+
 def library_flash_bwd(q, k, v, do, causal: bool, scale: float):
     """A call of PyTorch's own flash-attention backward on [B, H, T, D]
     inputs, with o and lse from its own forward; returns (dq, dk, dv)."""
@@ -238,6 +286,13 @@ def phase_kernels(A):
               f"K3 {fmt(e_dq)}; limit rel {rel}: ok", flush=True)
         if not timed:
             return None
+        # One writer per output: a second launch gives the same bits.
+        dk2, dv2 = A._flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
+        dq2 = A._flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+        same = all(torch.equal(x, y) for x, y in ((dk, dk2), (dv, dv2), (dq, dq2)))
+        check(same, f"K2/K3 [{tag}]: two launches on the same inputs differ")
+        print(f"deterministic [{tag}]: dk, dv and dq bitwise equal over two launches",
+              flush=True)
 
         el = q.element_size()
         pairs = bh * visible_pairs(tq, tk, causal)
@@ -283,6 +338,9 @@ def phase_kernels(A):
                   f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
                   f"({r['bound'][1]}), library {r['library_ms']:.3f} ms{lib}",
                   flush=True)
+        pair = res["flash_bwd_dkv"]["ms"] + res["flash_bwd_dq"]["ms"]
+        print(f"time K2 + K3 [{tag}]: {pair:.3f} ms, library {pair_lib_ms:.3f} ms "
+              f"(dq, dk and dv in one call)", flush=True)
         return res
 
     main = case(**MAIN, timed=True)
@@ -295,6 +353,11 @@ def phase_kernels(A):
     case(4, 300, 300, 72, True, dtype=torch.float32)  # float32, D % 16 != 0
     case(2, 256, 256, 128, True, dtype=torch.float32)  # float32 at the most shared memory
     case(2, 64, 64, 8, True)                 # one tile, smallest D
+    # bf16 edges of the Hopper K2 and K3: the 128-wide instance on
+    # zero-filled columns, ragged Tq < Tk under the causal mask, one block.
+    case(4, 1000, 1100, 72, True)
+    case(4, 1000, 1100, 96, True)
+    case(1, 64, 64, 128, True)
 
     def gqa(b, h, hkv, t, d):
         """GQA through the public entry point, forward and backward, with
@@ -596,6 +659,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    report_flash_bwd_build(_build)
 
     # 3. attention kernels
     numbers = phase_kernels(A)

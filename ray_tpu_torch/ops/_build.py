@@ -5,8 +5,9 @@ interface, compiled by `nvcc` for Hopper (`sm_90a`). All sources build
 in parallel, one `nvcc` each. A library is named after the hash of its
 source, the shared headers and the flags, so an edited source rebuilds
 and an unchanged one is loaded as it is. Libraries go to
-`ray_tpu_torch/_build/`, which git ignores. A failed build raises: there
-is no retry and no fallback.
+`ray_tpu_torch/_build/`, which git ignores, each beside the register and
+spill report `ptxas -v` printed for it (`ptxas_report`). A failed build
+raises: there is no retry and no fallback.
 
 The helpers below call a kernel's C entry point, which launches on
 PyTorch's current stream and returns a `cudaError_t`; `launch` raises if
@@ -49,6 +50,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def _library_path(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(source.read_bytes())
@@ -65,12 +70,12 @@ def build() -> Dict[str, ctypes.CDLL]:
         todo = {s: _library_path(s) for s in sources if s.stem not in _libs}
         pending = []
         for src, lib in todo.items():
-            if lib.exists():
+            if lib.exists() and _report_path(lib).exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".tmp{os.getpid()}")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(src)]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+                   "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             pending.append((src, lib, tmp, proc))
@@ -80,12 +85,20 @@ def build() -> Dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{out}")
             else:
+                _report_path(lib).write_text(out)
                 os.replace(tmp, lib)
         if failures:
             raise RuntimeError("nvcc failed for " + "\n".join(failures))
         for src, lib in todo.items():
             _libs[src.stem] = ctypes.CDLL(str(lib))
         return dict(_libs)
+
+
+def ptxas_report(name: str) -> str:
+    """What `ptxas -v` printed when `csrc/<name>.cu` was built: each
+    kernel's registers, stack, spill bytes and static shared memory."""
+    build()
+    return _report_path(_library_path(CSRC / f"{name}.cu")).read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the WMMA flash-attention kernels: flash_fwd.cu, and the
+// float32 kernels of flash_bwd.cu (its bf16 kernels use hopper.cuh).
 //
 // Layout: every tensor is [BH, T, D], contiguous and 16-byte aligned,
 // D <= 128 and D % 8 == 0, in float or bfloat16. lse and delta are [BH, Tq]

@@ -7,6 +7,9 @@ import ray_tpu
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc; skips without them"
+    )
     # With the witness armed, point every process — this one and the
     # spawned heads/raylets/workers, via env inheritance — at ONE
     # sidecar violations file. sessionfinish scans it, so an inversion

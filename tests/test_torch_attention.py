@@ -128,6 +128,60 @@ def test_flash_attention_grads_match_jax(interpret, h, hkv, tq, tk, causal):
         _close(leaf.grad, g, GRAD_TOL)
 
 
+# The bf16 K2 and K3 on the card round p and dS to bf16 once (no lo part)
+# before the dV, dK and dQ products. chip_smoke.py holds them to a normwise
+# relative error of 1e-2 per 64-row tile against the float32 plain
+# versions; an emulation of that rounding must fit the same limit.
+SMOKE_REL_TOL = 1e-2
+SMOKE_TILE = 64
+
+
+def _to_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulated_bf16_bwd(q, k, v, do, lse, delta, causal, sm_scale):
+    """(dq, dk, dv) as the bf16 kernels round: p and dS rounded to bf16,
+    float32 sums, outputs rounded to bf16; inputs already bf16 values."""
+    s = torch.bmm(q, k.transpose(1, 2)) * sm_scale
+    if causal:
+        s = s.masked_fill(~tattn._causal_mask(q.shape[1], k.shape[1], s.device), tattn.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.bmm(do, v.transpose(1, 2)) - delta[..., None]) * sm_scale
+    p, ds = _to_bf16(p), _to_bf16(ds)
+    dq = torch.bmm(ds, k)
+    dk = torch.bmm(ds.transpose(1, 2), q)
+    dv = torch.bmm(p.transpose(1, 2), do)
+    return tuple(_to_bf16(x) for x in (dq, dk, dv))
+
+
+def _worst_tile_rel_err(got, want, tile=SMOKE_TILE):
+    """Largest ||got - want|| / ||want|| over tiles of `tile` rows of T,
+    for [BH, T, D] tensors (chip_smoke.py's per-tile normwise error)."""
+    d2 = (got - want).pow(2).sum(dim=(0, 2))
+    r2 = want.pow(2).sum(dim=(0, 2))
+    pad = -d2.numel() % tile
+    d2 = torch.nn.functional.pad(d2, (0, pad)).view(-1, tile).sum(1)
+    r2 = torch.nn.functional.pad(r2, (0, pad)).view(-1, tile).sum(1)
+    return float((d2 / r2.clamp_min(1e-30)).sqrt().max())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", [(512, 512), (384, 512)])
+def test_bf16_rounding_of_p_and_ds_fits_the_smoke_limits(d, tq, tk):
+    q, k, v, do = (_to_bf16(torch.from_numpy(x)) for x in _bhtd(tq, tk, 40, d=d))
+    kw = dict(causal=True, sm_scale=1.0 / d**0.5)
+    o, lse = tattn._flash_fwd_plain(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    dk_p, dv_p = tattn._flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    dq_p = tattn._flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    got = _emulated_bf16_bwd(q, k, v, do, lse, delta, **kw)
+    for name, g, want in zip(("dq", "dk", "dv"), got, (dq_p, dk_p, dv_p)):
+        err = _worst_tile_rel_err(g, want)
+        # bf16 rounding of p, dS and the output: about 2e-3, far inside.
+        assert 0 < err <= SMOKE_REL_TOL, (name, err)
+
+
 def test_causal_rejects_more_queries_than_keys():
     q = torch.from_numpy(_rand((1, 2, 256, 64), 6))
     k = torch.from_numpy(_rand((1, 2, 128, 64), 7))
