@@ -7,26 +7,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. device: the card's name and power limit;
 2. build: every kernel source in `ray_tpu_torch/ops/csrc/`, in parallel;
-   the registers, spills and shared memory of the flash backward's
-   kernels, from ptxas; the bf16 (Hopper) K2 and K3 must not spill;
+   every kernel's registers and spills from ptxas, with the shared memory
+   per block of the bf16 Hopper kernels (`fwd_sm90`, `dkv_sm90`,
+   `dq_sm90`, `tgmm_sm90`), none of which may spill;
 3. attention kernels: K1 (forward), K2 (dK, dV) and K3 (dQ) against their
    plain PyTorch versions, which run in float32 on the same bf16-rounded
    inputs, at the Llama path's shape (D 128), the Mixtral path's (D 64,
    and its GQA of 16 heads over 8) and at ragged, non-causal, float32,
    GQA and bf16 edge cases (D 72 and 96 on zero-filled columns, ragged
-   Tq < Tk, one tile), element-wise and by normwise relative error per
-   tile; K2 and K3 give bitwise-equal outputs over two launches; times at
-   both paths' shapes of each kernel, its plain version and a library
-   call as a yardstick the port never calls:
-   `scaled_dot_product_attention` for K1, PyTorch's flash-attention
-   backward for the K2 + K3 pair;
+   Tq < Tk, Tq 777 under the causal mask, one tile), element-wise and by
+   normwise relative error per tile; K1, K2 and K3 give bitwise-equal
+   outputs over two launches; times at both paths' shapes of each kernel,
+   its plain version and a library call as a yardstick the port never
+   calls: `scaled_dot_product_attention` for K1, PyTorch's
+   flash-attention backward for the K2 + K3 pair;
 4. grouped-matmul kernels: K4 (gmm, and its dlhs form on transposed
    expert matrices) and K5 (tgmm) against their plain versions at the
    Mixtral path's shapes, from a real top-2 layout of 4096 tokens over 8
    experts, and at an empty expert (K5 writes zeros), one expert owning
-   every tile, K and N off the kernel's tile, mixtral-tiny's widths and
-   float32; times of each, its plain version and `torch._grouped_mm` as
-   the yardstick;
+   every tile, K and N off the kernel's tile, mixtral-tiny's widths, a
+   layout of block_m 256 and float32; K5 gives bitwise-equal outputs over
+   two launches; times of each, its plain version and `torch._grouped_mm`
+   as the yardstick;
 5. Llama train: `ray_tpu_torch.bench` at llama-1b, batch 2, sequence
    2048, bf16 parameters, one warm-up and three timed steps; the loss is
    finite and falls, and every kernel was launched as often as the model
@@ -159,13 +161,22 @@ def fmt(e) -> str:
     return f"max|err| {e[0]:.3e}, rel {e[1]:.2e}, tile rel {e[2]:.2e}"
 
 
+# Cycles the card spins before a timed run (a few ms), long enough for the
+# host to queue every timed launch behind it.
+SPIN_CYCLES = 10_000_000
+
+
 def time_ms(fn, iters: int = 10) -> float:
+    """Device time per call of `fn`: CUDA events around `iters` calls,
+    queued while the card spins, so that the host's time between launches
+    (the wrappers' Python and ctypes work) is not counted."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -188,8 +199,8 @@ def bound(bytes_moved: float, flops: float, flops_rate: float):
 
 def ptxas_kernels(report: str):
     """[(kernel, registers, spill bytes)] from an `nvcc -Xptxas -v`
-    report; a kernel of namespace `flash` is named as in its source, with
-    its template argument (`dkv_sm90<128>`)."""
+    report; a kernel of namespace `flash` or `grouped` is named as in its
+    source, with an integer template argument (`dkv_sm90<128>`)."""
     import re
 
     found, name, spill = [], None, 0
@@ -197,7 +208,7 @@ def ptxas_kernels(report: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name, spill = m.group(1), 0
-            m = re.match(r"_ZN5flash(\d+)(\w+)", name)
+            m = re.match(r"_ZN(?:5flash|7grouped)(\d+)(\w+)", name)
             if m:
                 n, rest = int(m.group(1)), m.group(2)
                 t = re.match(r"ILi(\d+)E", rest[n:])
@@ -211,23 +222,42 @@ def ptxas_kernels(report: str):
     return found
 
 
-def report_flash_bwd_build(build) -> None:
-    """Prints the flash backward kernels' registers, spills and (bf16)
-    shared memory per block; fails if a bf16 kernel spills."""
+# The bf16 Hopper kernels of each source: (library, C function giving the
+# dynamic shared memory per block, its arguments).
+SM90_KERNELS = {
+    "fwd_sm90<64>": ("flash_fwd", "flash_fwd_sm90_smem_bytes", (64,)),
+    "fwd_sm90<128>": ("flash_fwd", "flash_fwd_sm90_smem_bytes", (128,)),
+    "dkv_sm90<64>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (64, 0)),
+    "dkv_sm90<128>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (128, 0)),
+    "dq_sm90<64>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (64, 1)),
+    "dq_sm90<128>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (128, 1)),
+    "tgmm_sm90": ("gmm", "tgmm_sm90_smem_bytes", (MOE_EXPERTS,)),
+}
+
+
+def report_build(build) -> None:
+    """Prints every kernel's registers and spills, and the shared memory
+    per block of the bf16 Hopper kernels; fails if one of those is
+    missing from the reports or spills."""
     import ctypes
 
-    smem = build.library("flash_bwd").flash_bwd_sm90_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    parts = []
-    for name, regs, spill in ptxas_kernels(build.ptxas_report("flash_bwd")):
-        text = f"{name} {regs} registers, {spill} spill bytes"
-        if "sm90" in name:
-            check(spill == 0, f"ptxas: {name} spills {spill} bytes")
-            width = int(name.split("<")[1].rstrip(">"))
-            text += f", {smem(width, int(name.startswith('dq')))} bytes of shared memory"
-        parts.append(text)
-    check(sum("sm90" in p for p in parts) == 4, f"ptxas report of flash_bwd.cu: {parts}")
-    print("ptxas flash_bwd.cu: " + "; ".join(parts), flush=True)
+    def smem(lib, fn_name, args):
+        fn = getattr(build.library(lib), fn_name)
+        fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+        return fn(*args)
+
+    seen = set()
+    for lib in ("flash_fwd", "flash_bwd", "gmm"):
+        parts = []
+        for name, regs, spill in ptxas_kernels(build.ptxas_report(lib)):
+            text = f"{name} {regs} registers, {spill} spill bytes"
+            if name in SM90_KERNELS:
+                check(spill == 0, f"ptxas: {name} spills {spill} bytes")
+                text += f", {smem(*SM90_KERNELS[name])} bytes of shared memory"
+                seen.add(name)
+            parts.append(text)
+        print(f"ptxas {lib}.cu: " + "; ".join(parts), flush=True)
+    check(seen == set(SM90_KERNELS), f"ptxas reports lack {set(SM90_KERNELS) - seen}")
 
 
 def library_flash_bwd(q, k, v, do, causal: bool, scale: float):
@@ -287,11 +317,13 @@ def phase_kernels(A):
         if not timed:
             return None
         # One writer per output: a second launch gives the same bits.
+        o2, lse2 = A._flash_fwd_cuda(q, k, v, **kw)
         dk2, dv2 = A._flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
         dq2 = A._flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, **kw)
-        same = all(torch.equal(x, y) for x, y in ((dk, dk2), (dv, dv2), (dq, dq2)))
-        check(same, f"K2/K3 [{tag}]: two launches on the same inputs differ")
-        print(f"deterministic [{tag}]: dk, dv and dq bitwise equal over two launches",
+        same = all(torch.equal(x, y) for x, y in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2),
+                                                    (dq, dq2)))
+        check(same, f"K1/K2/K3 [{tag}]: two launches on the same inputs differ")
+        print(f"deterministic [{tag}]: o, lse, dk, dv and dq bitwise equal over two launches",
               flush=True)
 
         el = q.element_size()
@@ -353,10 +385,13 @@ def phase_kernels(A):
     case(4, 300, 300, 72, True, dtype=torch.float32)  # float32, D % 16 != 0
     case(2, 256, 256, 128, True, dtype=torch.float32)  # float32 at the most shared memory
     case(2, 64, 64, 8, True)                 # one tile, smallest D
-    # bf16 edges of the Hopper K2 and K3: the 128-wide instance on
-    # zero-filled columns, ragged Tq < Tk under the causal mask, one block.
+    # bf16 edges of the Hopper K1-K3: the 128-wide instance on
+    # zero-filled columns, ragged Tq < Tk under the causal mask (Tq 777:
+    # lse rows stored one by one), one block.
     case(4, 1000, 1100, 72, True)
     case(4, 1000, 1100, 96, True)
+    case(4, 777, 1000, 128, True)
+    case(4, 777, 1000, 64, True)
     case(1, 64, 64, 128, True)
 
     def gqa(b, h, hkv, t, d):
@@ -419,16 +454,17 @@ def phase_gmm(G):
     def rand(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    def routed(tokens, experts, skip=()):
+    def routed(tokens, experts, skip=(), block_m=128):
         """(dst, tile_group, m) of a top-2 layout of random router logits,
         with the experts in `skip` never chosen."""
         logits = torch.randn(tokens, experts, generator=gen, device="cuda")
         logits[:, list(skip)] = -math.inf
         e_flat = logits.topk(MOE_TOPK, dim=-1).indices.reshape(-1)
-        _, dst, tile_group, m = G.aligned_group_layout(e_flat, experts)
+        _, dst, tile_group, m = G.aligned_group_layout(e_flat, experts, block_m)
         return dst, tile_group, m
 
-    def case(tag, dst, tile_group, m, e, k, n, dtype=torch.bfloat16, timed=False, empty=()):
+    def case(tag, dst, tile_group, m, e, k, n, dtype=torch.bfloat16, timed=False, empty=(),
+             block_m=128):
         """K4 (lhs [m, k] @ rhs [e, k, n]), its dlhs form (dout [m, n] @
         rhs^T) and K5 (lhs^T dout per expert). Rows outside `dst` are the
         layout's zero rows, as the model fills them (all rows where dst is
@@ -446,7 +482,7 @@ def phase_gmm(G):
         f32 = dtype == torch.float32
         tol = F32_TOL if f32 else GMM_TOL
         rel = F32_TOL if f32 else REL_TOL
-        kw = dict(block_m=128)
+        kw = dict(block_m=block_m)
 
         def close(name, got, want, per_expert=False):
             atol = tol * float(want.pow(2).mean().sqrt())
@@ -473,6 +509,10 @@ def phase_gmm(G):
               f": ok", flush=True)
         if not timed:
             return None
+        # One writer per output tile: a second launch gives the same bits.
+        check(torch.equal(drhs, G._tgmm_cuda(lhs, dout, tile_group, e, **kw)),
+              f"K5 [{tag}]: two launches on the same inputs differ")
+        print(f"deterministic [{tag}]: K5 bitwise equal over two launches", flush=True)
 
         el = lhs.element_size()
         flops = 2 * m * k * n
@@ -526,6 +566,8 @@ def phase_gmm(G):
     dst, tile_group, m = routed(1024, e, skip=(0, 7))
     case(f"float32, empty experts 0 and 7, m{m} k256 n512", dst, tile_group, m, e, 256, 512,
          dtype=torch.float32, empty=(0, 7))
+    dst, tile_group, m = routed(1024, e, block_m=256)
+    case(f"block_m 256, m{m} k256 n384", dst, tile_group, m, e, 256, 384, block_m=256)
     return {"gmm": main["gmm"], "tgmm": main["tgmm"]}
 
 
@@ -659,7 +701,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
-    report_flash_bwd_build(_build)
+    report_build(_build)
 
     # 3. attention kernels
     numbers = phase_kernels(A)

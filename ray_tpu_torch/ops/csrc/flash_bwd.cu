@@ -235,15 +235,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // ------------------------------------------------------------ bf16: Hopper
 
-constexpr int NSTAGE = 2;       // ring depth for the streamed tiles
-constexpr int WG_THREADS = 128;  // one warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+constexpr int NSTAGE = 2;  // ring depth for the streamed tiles
 
 // Shared memory of K2 at head width DI: K and V stay, Q and dO stream
 // through the ring, with lse * log2(e) and delta of each stage's q rows.
@@ -272,31 +264,8 @@ struct DqSmem {
   uint64_t full[NSTAGE];
 };
 
-// Dynamic shared memory of a launch: the layout, and room to align it.
-template <typename Smem>
-constexpr int smem_bytes() {
-  return sizeof(Smem) + 1024;
-}
-
-// Writes rows row0 + r < n, columns < d, of an m64nN accumulator as bf16
-// to the [n][d] matrix out.
-template <int N>
-__device__ __forceinline__ void store_acc(bf16* __restrict__ out, const float (&acc)[N / 2],
-                                          int row0, int n, int d) {
-  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 16 * w + l / 4 + 8 * h, col = 8 * j + 2 * (l % 4);
-      if (row < n && col < d)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * d + col) =
-            hopper::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-}
-
 template <int DI>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(hopper::WG_THREADS, 1)
     dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -420,12 +389,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
   }
 
-  store_acc<DI>(dk + static_cast<size_t>(bh) * tk * d, dk_acc, k0, tk, d);
-  store_acc<DI>(dv + static_cast<size_t>(bh) * tk * d, dv_acc, k0, tk, d);
+  store_acc<DI>(dk + static_cast<size_t>(bh) * tk * d, dk_acc, d, k0, tk, 0, d);
+  store_acc<DI>(dv + static_cast<size_t>(bh) * tk * d, dv_acc, d, k0, tk, 0, d);
 }
 
 template <int DI>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(hopper::WG_THREADS, 1)
     dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
             const float* __restrict__ lse, const float* __restrict__ delta,
@@ -525,7 +494,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (t == 0 && it + NSTAGE < n) load_kv_tile(s, it + NSTAGE);
   }
 
-  store_acc<DI>(dq + static_cast<size_t>(bh) * tq * d, dq_acc, q0, tq, d);
+  store_acc<DI>(dq + static_cast<size_t>(bh) * tq * d, dq_acc, d, q0, tq, 0, d);
 }
 
 // The four tensor maps of q, k, v and dout, [bh][t][d] each.
@@ -546,11 +515,11 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dou
   CUtensorMap m[4];
   cudaError_t err = encode_qkvdo(m, q, k, v, dout, bh, tq, tk, d);
   if (err != cudaSuccess) return err;
-  const int smem = smem_bytes<DkvSmem<DI>>();
+  const int smem = hopper::smem_bytes<DkvSmem<DI>>();
   err = cudaFuncSetAttribute(dkv_sm90<DI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nk = (tk + BK - 1) / BK;
-  dkv_sm90<DI><<<bh * nk, WG_THREADS, smem, stream>>>(
+  dkv_sm90<DI><<<bh * nk, hopper::WG_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, tq, tk, d, scale, causal);
   return cudaGetLastError();
@@ -563,11 +532,11 @@ int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout
   CUtensorMap m[4];
   cudaError_t err = encode_qkvdo(m, q, k, v, dout, bh, tq, tk, d);
   if (err != cudaSuccess) return err;
-  const int smem = smem_bytes<DqSmem<DI>>();
+  const int smem = hopper::smem_bytes<DqSmem<DI>>();
   err = cudaFuncSetAttribute(dq_sm90<DI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nq = (tq + BQ - 1) / BQ;
-  dq_sm90<DI><<<bh * nq, WG_THREADS, smem, stream>>>(
+  dq_sm90<DI><<<bh * nq, hopper::WG_THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), bh, tq, tk, d, scale, causal);
   return cudaGetLastError();
@@ -629,6 +598,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 // dim d, for reports beside ptxas's registers.
 extern "C" int flash_bwd_sm90_smem_bytes(int d, int is_dq) {
   using namespace flash;
+  using hopper::smem_bytes;
   if (is_dq) return d <= 64 ? smem_bytes<DqSmem<64>>() : smem_bytes<DqSmem<128>>();
   return d <= 64 ? smem_bytes<DkvSmem<64>>() : smem_bytes<DkvSmem<128>>();
 }

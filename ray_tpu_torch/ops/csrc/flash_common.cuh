@@ -1,5 +1,5 @@
-// Shared pieces of the WMMA flash-attention kernels: flash_fwd.cu, and the
-// float32 kernels of flash_bwd.cu (its bf16 kernels use hopper.cuh).
+// Shared pieces of the WMMA kernels: the float32 kernels of flash_fwd.cu
+// and flash_bwd.cu (their bf16 kernels use hopper.cuh), and gmm.cu's.
 //
 // Layout: every tensor is [BH, T, D], contiguous and 16-byte aligned,
 // D <= 128 and D % 8 == 0, in float or bfloat16. lse and delta are [BH, Tq]
@@ -42,6 +42,8 @@ constexpr int CPT = DMAX / 16;  // head-dim columns per thread
 // The reference's finite mask value: exp(NEG_INF - m) is 0 for any finite
 // m, where -inf would give exp(-inf - -inf) = NaN.
 constexpr float NEG_INF = -1e30f;
+// The bf16 Hopper kernels take exponentials in base 2, of s * scale * LOG2E.
+constexpr float LOG2E = 1.4426950408889634f;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
@@ -87,10 +89,6 @@ union Pack8 {
   uint4 u;
   __nv_bfloat162 h2[4];
 };
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 // Eight consecutive values as float, in 16-byte loads.
 __device__ __forceinline__ void load8(float (&x)[8], const float* p) {

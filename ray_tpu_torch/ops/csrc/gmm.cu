@@ -16,14 +16,8 @@
 // alignment. tile_group holds int32 group ids in [0, E); K4 clamps an id
 // outside that range, as a JAX index would be clamped.
 //
-// Design. A block has 256 threads (8 warps, 4 x 2) and owns one 128 x 128
-// output tile; each warp owns 32 x 64 of it as 2 x 4 WMMA accumulators
-// (16 x 16 x 16, bf16 in, float out). The contraction runs in stages of 32:
-// each stage is read from device memory into registers while the tensor
-// cores work on the previous one from shared memory. A float operand is
-// split in bf16 hi + lo as in flash_common.cuh (a.hi b.hi + a.lo b.hi +
-// a.hi b.lo, about 16 bits of mantissa). Edges past K and N load as zeros
-// and are not written.
+// Design. A block owns one 128 x 128 output tile. Edges past K and N load
+// as zeros and are not written.
 // - K4: one block per (128-row tile, 128-column tile). The row tile lies in
 //   one layout tile of block_m rows, so the block reads its own expert index
 //   tile_group[row / block_m]: that replaces the TPU's scalar prefetch.
@@ -36,6 +30,27 @@
 //   An expert with no tiles gets zeros, where the reference leaves its block
 //   unwritten (NaN).
 //
+// K4 (both types) and float32 K5 run on WMMA: 256 threads (8 warps, 4 x 2),
+// each warp owning 32 x 64 of the tile as 2 x 4 accumulators (16 x 16 x
+// 16, bf16 in, float out). The contraction runs in stages of 32: each stage
+// is read from device memory into registers while the tensor cores work on
+// the previous one from shared memory. A float operand is split in bf16 hi
+// + lo as in flash_common.cuh (a.hi b.hi + a.lo b.hi + a.hi b.lo, about 16
+// bits of mantissa).
+//
+// bf16 K5 runs on a Hopper kernel (tgmm_sm90; hopper.cuh). Two consumer
+// warpgroups each hold a 64 (k) x 128 (n) float accumulator in registers.
+// A stage is 64 layout rows: lhs [64 rows][128 k] and dout [64 rows][128 n],
+// two 64-column TMA boxes each, 32 KB, in a ring of TG_NSTAGE stages on
+// mbarriers; the block walks its expert's block_m tiles 64 rows at a time,
+// and thread 0 starts each stage's TMA. Warpgroup w's product is a wgmma
+// from shared memory with both operands MN-major (the contraction, the
+// layout rows, is the rows of both tiles): A is lhs box w, M its 64 k
+// columns; B is both dout boxes, N 128. The accumulator is written once,
+// as bf16, straight from registers. Blocks differ in work by the size of
+// their expert, so the experts are taken largest first: the grid's expert
+// slot z runs the expert of rank z by tile count.
+//
 // Bound on an H100 SXM at the main path (mixtral-small, batch 2, sequence
 // 2048, top-2 of 8: 8192 (token, expert) pairs in M = 9216 layout rows): a
 // gate or up projection, K 1024 and N 3584, does 2 M K N = 67.6 GFLOP, 68 us
@@ -43,11 +58,14 @@
 // (K 3584, N 1024), dlhs and drhs are the same work. Every launch is bound by
 // operations.
 //
-// What this simple design leaves on the table: WMMA through shared memory
-// instead of wgmma, register-staged loads instead of TMA or cp.async with a
-// deeper pipeline, no persistent blocks (K5's blocks differ in work by the
-// size of their expert), and 3 products for each float stage.
+// What these designs leave on the table: K4 still runs WMMA through shared
+// memory with register-staged loads. K5's Hopper kernel reads each operand
+// tile from L2 once per 128 x 128 output tile (about 1 GB per launch at the
+// main path), starts TMA from a consumer thread instead of a producer warp,
+// drains its products every stage, and has no persistent blocks to hide
+// each block's start and its stores. Float stages take 3 products each.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace grouped {
 
@@ -249,15 +267,15 @@ __global__ void __launch_bounds__(NTHREADS)
   store_acc(acc, s.stage, out, n, row0, col0, m, n);
 }
 
-// K5. Grid (n tiles, k tiles, experts). out[e] [k][n] = sum over the rows of
-// expert e's m tiles of lhs^T [k][rows] @ dout [rows][n]. lhs rows are staged
-// as they are, [BK rows][BM of k], and read as A in column-major order.
-template <typename T>
+// K5 in float32. Grid (n tiles, k tiles, experts). out[e] [k][n] = sum over
+// the rows of expert e's m tiles of lhs^T [k][rows] @ dout [rows][n]. lhs
+// rows are staged as they are, [BK rows][BM of k], and read as A in
+// column-major order.
 __global__ void __launch_bounds__(NTHREADS)
-    tgmm_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
-                const int* __restrict__ tile_group, T* __restrict__ out, int m, int k, int n,
-                int block_m) {
-  constexpr bool SPLIT = std::is_same<T, float>::value;
+    tgmm_f32(const float* __restrict__ lhs, const float* __restrict__ dout,
+             const int* __restrict__ tile_group, float* __restrict__ out, int m, int k, int n,
+             int block_m) {
+  using T = float;
   constexpr int LDA = BM + PAD, LDB = BN + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<T> s(smem);
@@ -291,8 +309,8 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
     const int nxt = next(cur);
     if (nxt >= 0) fetch(nxt);
-    mma_stage<wmma::col_major, wmma::row_major, SPLIT>(acc, s.a_hi, s.a_lo, LDA, s.b_hi,
-                                                       s.b_lo, LDB);
+    mma_stage<wmma::col_major, wmma::row_major, true>(acc, s.a_hi, s.a_lo, LDA, s.b_hi,
+                                                      s.b_lo, LDB);
     cur = nxt;
   }
   store_acc(acc, s.stage, out + static_cast<size_t>(e) * k * n, n, row0, col0, k, n);
@@ -316,16 +334,129 @@ int launch_gmm(const void* lhs, const void* rhs, const void* tile_group, void* o
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_tgmm(const void* lhs, const void* dout, const void* tile_group, void* out, int m,
-                int k, int n, int num_groups, int block_m, cudaStream_t stream) {
-  const int smem = smem_bytes(std::is_same<T, float>::value);
-  cudaError_t err = allow_smem(tgmm_kernel<T>, smem);
+int launch_tgmm_f32(const void* lhs, const void* dout, const void* tile_group, void* out, int m,
+                    int k, int n, int num_groups, int block_m, cudaStream_t stream) {
+  const int smem = smem_bytes(true);
+  cudaError_t err = allow_smem(tgmm_f32, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, (k + BM - 1) / BM, num_groups);
-  tgmm_kernel<T><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(lhs), static_cast<const T*>(dout),
-      static_cast<const int*>(tile_group), static_cast<T*>(out), m, k, n, block_m);
+  tgmm_f32<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const float*>(lhs), static_cast<const float*>(dout),
+      static_cast<const int*>(tile_group), static_cast<float*>(out), m, k, n, block_m);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ K5, bf16: Hopper
+
+constexpr int TG_NSTAGE = 3;                        // ring depth
+constexpr int TG_ROWS = 64;                         // layout rows per stage
+constexpr int TG_THREADS = 2 * hopper::WG_THREADS;  // two consumer warpgroups
+
+// A stage: lhs [64 rows][128 k] and dout [64 rows][128 n], two boxes each.
+struct TgmmSmem {
+  alignas(1024) unsigned char lhs[TG_NSTAGE][2 * hopper::BOX_BYTES];
+  alignas(1024) unsigned char dout[TG_NSTAGE][2 * hopper::BOX_BYTES];
+  uint64_t full[TG_NSTAGE];
+};
+
+// Grid (n tiles, k tiles, expert slots); lhs and dout through the
+// [1][M][K] and [1][M][N] tensor maps tm_lhs and tm_dout. Slot z takes the
+// expert of rank z by tile count, largest first (ties by id), so that the
+// blocks with the most work start in the first wave. Dynamic shared memory
+// holds TgmmSmem, then num_groups + 1 ints.
+__global__ void __launch_bounds__(TG_THREADS, 2)
+    tgmm_sm90(const __grid_constant__ CUtensorMap tm_lhs,
+              const __grid_constant__ CUtensorMap tm_dout, const int* __restrict__ tile_group,
+              bf16* __restrict__ out, int m, int k, int n, int num_groups, int block_m) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  TgmmSmem& sm = *reinterpret_cast<TgmmSmem*>(align_1024(smem_raw));
+  const int t = threadIdx.x, wg = t / WG_THREADS;
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
+  const int ntiles = m / block_m, per_tile = block_m / TG_ROWS;
+
+  // Tiles per expert, then this slot's expert.
+  int* tiles_of = reinterpret_cast<int*>(&sm + 1);  // [num_groups], then the pick
+  for (int g = t; g < num_groups; g += TG_THREADS) tiles_of[g] = 0;
+  __syncthreads();
+  for (int i = t; i < ntiles; i += TG_THREADS) {
+    const int g = tile_group[i];
+    if (g >= 0 && g < num_groups) atomicAdd(&tiles_of[g], 1);
+  }
+  __syncthreads();
+  for (int g = t; g < num_groups; g += TG_THREADS) {
+    int rank = 0;
+    for (int u = 0; u < num_groups; ++u)
+      rank += tiles_of[u] > tiles_of[g] || (tiles_of[u] == tiles_of[g] && u < g);
+    if (rank == static_cast<int>(blockIdx.z)) tiles_of[num_groups] = g;
+  }
+  __syncthreads();
+  const int e = tiles_of[num_groups];
+  const int n_stages = tiles_of[e] * per_tile;  // per_tile for each tile of e
+
+  // Thread 0's walk over expert e's tiles: the stage after the last one
+  // loaded is the next 64 rows of the same tile, else the first 64 of the
+  // next tile of e (there is one while stages remain).
+  int tile = -1, sub = per_tile;
+  auto load_stage = [&](int s) {  // one thread
+    if (sub == per_tile) {
+      do ++tile;
+      while (tile_group[tile] != e);
+      sub = 0;
+    }
+    const int row = tile * block_m + TG_ROWS * sub++;
+    mbar_arrive_expect_tx(&sm.full[s], 4 * BOX_BYTES);
+    tma_load_tile<BM>(sm.lhs[s], &tm_lhs, &sm.full[s], row, 0, row0);
+    tma_load_tile<BN>(sm.dout[s], &tm_dout, &sm.full[s], row, 0, col0);
+  };
+
+  if (t == 0) {
+    for (int s = 0; s < TG_NSTAGE; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0)
+    for (int s = 0; s < TG_NSTAGE && s < n_stages; ++s) load_stage(s);
+
+  float acc[BN / 2];  // out rows row0 + 64 wg.. [64 k][128 n]
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_stages; ++it) {
+    const int s = it % TG_NSTAGE;
+    mbar_wait(&sm.full[s], (it / TG_NSTAGE) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < TG_ROWS / 16; ++ks)
+      wgmma_ss_n128<1, 1>(acc, desc_mn_major(sm.lhs[s] + wg * BOX_BYTES, ks),
+                          desc_mn_major(sm.dout[s], ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    __syncthreads();  // stage s is no longer read: refill it
+    if (t == 0 && it + TG_NSTAGE < n_stages) load_stage(s);
+  }
+
+  hopper::store_acc<BN>(out + static_cast<size_t>(e) * k * n, acc, n, row0 + 64 * wg, k, col0,
+                        n);
+}
+
+int launch_tgmm_sm90(const void* lhs, const void* dout, const void* tile_group, void* out,
+                     int m, int k, int n, int num_groups, int block_m, cudaStream_t stream) {
+  CUtensorMap tm_lhs, tm_dout;
+  cudaError_t err = hopper::encode_tiles(&tm_lhs, lhs, 1, m, k);
+  if (err == cudaSuccess) err = hopper::encode_tiles(&tm_dout, dout, 1, m, n);
+  if (err != cudaSuccess) return err;
+  const int smem = hopper::smem_bytes<TgmmSmem>() + 4 * (num_groups + 1);
+  err = allow_smem(tgmm_sm90, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + BN - 1) / BN, (k + BM - 1) / BM, num_groups);
+  tgmm_sm90<<<grid, TG_THREADS, smem, stream>>>(tm_lhs, tm_dout,
+                                                static_cast<const int*>(tile_group),
+                                                static_cast<bf16*>(out), m, k, n, num_groups,
+                                                block_m);
   return cudaGetLastError();
 }
 
@@ -353,8 +484,13 @@ extern "C" int tgmm(const void* lhs, const void* dout, const void* tile_group, v
                     void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return grouped::launch_tgmm<flash::bf16>(lhs, dout, tile_group, out, m, k, n, num_groups,
-                                             block_m, s);
-  return grouped::launch_tgmm<float>(lhs, dout, tile_group, out, m, k, n, num_groups, block_m,
+    return grouped::launch_tgmm_sm90(lhs, dout, tile_group, out, m, k, n, num_groups, block_m,
                                      s);
+  return grouped::launch_tgmm_f32(lhs, dout, tile_group, out, m, k, n, num_groups, block_m, s);
+}
+
+// Dynamic shared memory per block of the bf16 K5 at num_groups experts,
+// for reports beside ptxas's registers.
+extern "C" int tgmm_sm90_smem_bytes(int num_groups) {
+  return hopper::smem_bytes<grouped::TgmmSmem>() + 4 * (num_groups + 1);
 }

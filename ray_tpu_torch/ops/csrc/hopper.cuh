@@ -96,14 +96,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Rows [row, row + 64), columns [0, COLS) of matrix z of a [Z][T][D] map
-// (see encode_tiles), as COLS / 64 boxes; COLS * 128 bytes on bar.
+// Rows [row, row + 64), columns [col, col + COLS) of matrix z of a
+// [Z][T][D] map (see encode_tiles), as COLS / 64 boxes; COLS * 128 bytes
+// on bar.
 template <int COLS>
 __device__ __forceinline__ void tma_load_tile(unsigned char* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int row, int z) {
+                                              uint64_t* bar, int row, int z, int col = 0) {
 #pragma unroll
   for (int b = 0; b < COLS / BOX_COLS; ++b)
-    tma_load_3d(dst + b * BOX_BYTES, map, bar, b * BOX_COLS, row, z);
+    tma_load_3d(dst + b * BOX_BYTES, map, bar, col + b * BOX_COLS, row, z);
 }
 
 // ------------------------------------------------------------ descriptors
@@ -163,6 +164,31 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d[64] = A B (accumulate 0) or d[64] += A B, m64n128k16; A and B by
+// descriptor, TRANS 1 for an MN-major operand.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
@@ -233,7 +259,41 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2], uint32_t (&a)[
     for (int r = 0; r < 4; ++r) a[ks][r] = pack_bf16(d[8 * ks + 2 * r], d[8 * ks + 2 * r + 1]);
 }
 
+// Writes an m64nN accumulator of warpgroup threadIdx.x / 128 as bf16 to
+// rows [row0, row0 + 64) and columns [col0, col0 + N) of a row-major
+// matrix of row stride ld: rows < nrows and columns < ncols (ncols and ld
+// even), two columns per 4-byte store.
+template <int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ out,
+                                          const float (&acc)[N / 2], int ld, int row0,
+                                          int nrows, int col0, int ncols) {
+  const int w = threadIdx.x % 128 / 32, l = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * w + l / 4 + 8 * h, col = col0 + 8 * j + 2 * (l % 4);
+      if (row < nrows && col < ncols)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * ld + col) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------------ host
+
+constexpr int WG_THREADS = 128;  // one warpgroup
+
+// Dynamic shared memory of a launch: the layout, and room to align it.
+template <typename Smem>
+constexpr int smem_bytes() {
+  return sizeof(Smem) + 1024;
+}
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 

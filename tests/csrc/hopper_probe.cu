@@ -5,6 +5,8 @@
 // MODE 0: C[64][64] = A B^T, A and B [64][64] K-major (SS).
 // MODE 1: C[64][64] = A B, B [64 (K)][64 (N)] MN-major (SS, trans-b).
 // MODE 2: C[64][N] = bf16(A B^T) B2, B2 [64 (K)][N] MN-major (SS, then RS).
+// MODE 3: C[64][128] = A^T B2, A [64 (K)][64 (M)] and B2 [64 (K)][128 (N)]
+//         both MN-major (SS at N 128, both transpose bits; K5's product).
 #include "hopper.cuh"
 using namespace hopper;
 
@@ -20,10 +22,10 @@ __global__ void probe(const __grid_constant__ CUtensorMap ta, const __grid_const
   if (t == 0) { mbar_init(bar, 1); mbar_fence_init(); }
   __syncthreads();
   if (t == 0) {
-    mbar_arrive_expect_tx(bar, (MODE == 2 ? 2 + N / 64 : 2) * BOX_BYTES);
+    mbar_arrive_expect_tx(bar, (MODE >= 2 ? 2 + N / 64 : 2) * BOX_BYTES);
     tma_load_tile<64>(a, &ta, bar, 0, 0);
     tma_load_tile<64>(b, &tb, bar, 0, 0);
-    if (MODE == 2) tma_load_tile<N>(b2, &tb2, bar, 0, 0);
+    if (MODE >= 2) tma_load_tile<N>(b2, &tb2, bar, 0, 0);
   }
   mbar_wait(bar, 0);
   float acc[N / 2];
@@ -32,12 +34,17 @@ __global__ void probe(const __grid_constant__ CUtensorMap ta, const __grid_const
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    if (MODE == 1) wgmma_ss_n64<0, 1>(x, desc_k_major(a, ks), desc_mn_major(b, ks), ks);
-    else wgmma_ss_n64<0, 0>(x, desc_k_major(a, ks), desc_k_major(b, ks), ks);
+    if constexpr (MODE == 3)
+      wgmma_ss_n128<1, 1>(acc, desc_mn_major(a, ks), desc_mn_major(b2, ks), ks);
+    else if constexpr (MODE == 1)
+      wgmma_ss_n64<0, 1>(x, desc_k_major(a, ks), desc_mn_major(b, ks), ks);
+    else
+      wgmma_ss_n64<0, 0>(x, desc_k_major(a, ks), desc_k_major(b, ks), ks);
   }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(x);
+  fence_regs(acc);
   if constexpr (MODE == 2) {
     uint32_t xa[4][4];
     acc_to_a<64>(x, xa);
@@ -48,7 +55,7 @@ __global__ void probe(const __grid_constant__ CUtensorMap ta, const __grid_const
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-  } else {
+  } else if constexpr (MODE < 2) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = x[i];
   }
@@ -77,10 +84,11 @@ extern "C" int probe_run(int mode, int n, const void* a, const void* b, const vo
   CUtensorMap ma, mb, mb2;
   cudaError_t err = encode_tiles(&ma, a, 1, 64, 64);
   if (err == cudaSuccess) err = encode_tiles(&mb, b, 1, 64, 64);
-  if (err == cudaSuccess) err = encode_tiles(&mb2, mode == 2 ? b2 : b, 1, 64, mode == 2 ? n : 64);
+  if (err == cudaSuccess) err = encode_tiles(&mb2, mode >= 2 ? b2 : b, 1, 64, mode >= 2 ? n : 64);
   if (err != cudaSuccess) return err;
   if (mode == 0) return run<64, 0>(ma, mb, mb2, c);
   if (mode == 1) return run<64, 1>(ma, mb, mb2, c);
+  if (mode == 3) return n == 128 ? run<128, 3>(ma, mb, mb2, c) : cudaErrorInvalidValue;
   if (n == 64) return run<64, 2>(ma, mb, mb2, c);
   return run<128, 2>(ma, mb, mb2, c);
 }

@@ -6,6 +6,8 @@ runs its Pallas kernels in interpret mode. Both get the same float32
 inputs from numpy seeds, so only the order of summation differs: forward
 atol/rtol 1e-4, gradients 5e-4.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -180,6 +182,54 @@ def test_bf16_rounding_of_p_and_ds_fits_the_smoke_limits(d, tq, tk):
         err = _worst_tile_rel_err(g, want)
         # bf16 rounding of p, dS and the output: about 2e-3, far inside.
         assert 0 < err <= SMOKE_REL_TOL, (name, err)
+
+
+# The bf16 K1 on the card runs an online softmax over 64-key tiles in the
+# log2 unit and rounds p to bf16 for p V, while l sums the float p; o is
+# rounded to bf16. chip_smoke.py holds it to a normwise relative error of
+# 1e-2 per 64-row tile and lse to an absolute 1e-3.
+SMOKE_LSE_ATOL = 1e-3
+LOG2E = 1.4426950408889634
+
+
+def _emulated_bf16_fwd(q, k, v, causal, sm_scale, block=SMOKE_TILE):
+    """(o, lse) as the bf16 K1 computes them; inputs already bf16 values."""
+    bh, tq, _ = q.shape
+    tk = k.shape[1]
+    visible = (tattn._causal_mask(tq, tk, q.device) if causal
+               else torch.ones((tq, tk), dtype=torch.bool))
+    m = torch.full((bh, tq, 1), tattn.NEG_INF)  # of s * scale * log2(e)
+    l = torch.zeros((bh, tq, 1))
+    acc = torch.zeros_like(q)
+    for k0 in range(0, tk, block):
+        x = torch.bmm(q, k[:, k0:k0 + block].transpose(1, 2)) * (sm_scale * LOG2E)
+        x = x.masked_fill(~visible[:, k0:k0 + block], tattn.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.bmm(_to_bf16(p), v[:, k0:k0 + block])
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return _to_bf16(acc / l), (m * math.log(2.0) + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tk", [(512, 512), (384, 512), (300, 300)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_fwd_emulation_fits_the_smoke_limits(interpret, d, tq, tk, causal):
+    q, k, v, _ = (_to_bf16(torch.from_numpy(x)) for x in _bhtd(tq, tk, 50, d=d))
+    kw = dict(causal=causal, sm_scale=1.0 / d**0.5)
+    o, lse = _emulated_bf16_fwd(q, k, v, **kw)
+    o_j, lse_j = jattn._flash_fwd_pallas(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                         block_q=128, block_k=128, **kw)
+    refs = {"plain": tattn._flash_fwd_plain(q, k, v, **kw),
+            "pallas": (torch.from_numpy(np.array(o_j)), torch.from_numpy(np.array(lse_j)))}
+    for name, (o_ref, lse_ref) in refs.items():
+        err = _worst_tile_rel_err(o, o_ref)
+        # bf16 rounding of p and of o: about 2e-3, far inside.
+        assert 0 < err <= SMOKE_REL_TOL, (name, err)
+        assert float((lse - lse_ref).abs().max()) <= SMOKE_LSE_ATOL, name
 
 
 def test_causal_rejects_more_queries_than_keys():

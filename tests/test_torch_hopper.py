@@ -7,7 +7,8 @@ memory descriptors, and the accumulator is written out through the
 layout `hopper.cuh` states. Mode 0 reads both operands K-major, mode 1
 reads B MN-major (the transpose bit), and mode 2 feeds the bf16-rounded
 accumulator of a mode-0 product as the register A operand of a second
-product whose B is MN-major, N 64 or 128. A wrong swizzle, descriptor or
+product whose B is MN-major, N 64 or 128, and mode 3 reads both operands
+MN-major at N 128 (K5's product, A^T B). A wrong swizzle, descriptor or
 fragment layout moves whole rows or columns; float32 sums of exact bf16
 products agree with a float64 matmul to about 1e-5.
 
@@ -44,7 +45,7 @@ def probe(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,n", [(0, 64), (1, 64), (2, 64), (2, 128)])
+@pytest.mark.parametrize("mode,n", [(0, 64), (1, 64), (2, 64), (2, 128), (3, 128)])
 def test_hopper_blocks_match_matmul(probe, mode, n):
     gen = torch.Generator(device="cuda").manual_seed(mode * 1000 + n)
     a, b, b2 = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -56,6 +57,8 @@ def test_hopper_blocks_match_matmul(probe, mode, n):
         want = af @ bf.T
     elif mode == 1:
         want = af @ bf
+    elif mode == 3:
+        want = af.T @ b2.double()
     else:
         want = (af @ bf.T).float().to(torch.bfloat16).double() @ b2.double()
     err = float((c.double() - want).abs().max() / want.abs().max())
