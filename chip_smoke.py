@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. build: every kernel source in `ray_tpu_torch/ops/csrc/`, in parallel;
    every kernel's registers and spills from ptxas, with the shared memory
    per block of the bf16 Hopper kernels (`fwd_sm90`, `dkv_sm90`,
-   `dq_sm90`, `tgmm_sm90`), none of which may spill;
+   `dq_sm90`, `gmm_sm90` in both forms, `tgmm_sm90`), none of which may
+   spill;
 3. attention kernels: K1 (forward), K2 (dK, dV) and K3 (dQ) against their
    plain PyTorch versions, which run in float32 on the same bf16-rounded
    inputs, at the Llama path's shape (D 128), the Mixtral path's (D 64,
@@ -26,9 +27,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    Mixtral path's shapes, from a real top-2 layout of 4096 tokens over 8
    experts, and at an empty expert (K5 writes zeros), one expert owning
    every tile, K and N off the kernel's tile, mixtral-tiny's widths, a
-   layout of block_m 256 and float32; K5 gives bitwise-equal outputs over
-   two launches; times of each, its plain version and `torch._grouped_mm`
-   as the yardstick;
+   layout of block_m 256, float32, and (K4 alone) tile ids past the last
+   expert, which both K4 and its plain version clamp; K4, its dlhs form
+   and K5 give bitwise-equal outputs over two launches; times of each,
+   its plain version and `torch._grouped_mm` as the yardstick;
 5. Llama train: `ray_tpu_torch.bench` at llama-1b, batch 2, sequence
    2048, bf16 parameters, one warm-up and three timed steps; the loss is
    finite and falls, and every kernel was launched as often as the model
@@ -200,7 +202,8 @@ def bound(bytes_moved: float, flops: float, flops_rate: float):
 def ptxas_kernels(report: str):
     """[(kernel, registers, spill bytes)] from an `nvcc -Xptxas -v`
     report; a kernel of namespace `flash` or `grouped` is named as in its
-    source, with an integer template argument (`dkv_sm90<128>`)."""
+    source, with an integer or bool template argument (`dkv_sm90<128>`,
+    `gmm_sm90<true>`)."""
     import re
 
     found, name, spill = [], None, 0
@@ -211,8 +214,11 @@ def ptxas_kernels(report: str):
             m = re.match(r"_ZN(?:5flash|7grouped)(\d+)(\w+)", name)
             if m:
                 n, rest = int(m.group(1)), m.group(2)
-                t = re.match(r"ILi(\d+)E", rest[n:])
-                name = rest[:n] + (f"<{t.group(1)}>" if t else "")
+                t = re.match(r"IL([ib])(\d+)E", rest[n:])
+                if t and t.group(1) == "b":
+                    name = rest[:n] + ("<true>" if t.group(2) == "1" else "<false>")
+                else:
+                    name = rest[:n] + (f"<{t.group(2)}>" if t else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
@@ -231,6 +237,8 @@ SM90_KERNELS = {
     "dkv_sm90<128>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (128, 0)),
     "dq_sm90<64>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (64, 1)),
     "dq_sm90<128>": ("flash_bwd", "flash_bwd_sm90_smem_bytes", (128, 1)),
+    "gmm_sm90<false>": ("gmm", "gmm_sm90_smem_bytes", ()),
+    "gmm_sm90<true>": ("gmm", "gmm_sm90_smem_bytes", ()),
     "tgmm_sm90": ("gmm", "tgmm_sm90_smem_bytes", (MOE_EXPERTS,)),
 }
 
@@ -464,11 +472,11 @@ def phase_gmm(G):
         return dst, tile_group, m
 
     def case(tag, dst, tile_group, m, e, k, n, dtype=torch.bfloat16, timed=False, empty=(),
-             block_m=128):
+             block_m=128, k5=True):
         """K4 (lhs [m, k] @ rhs [e, k, n]), its dlhs form (dout [m, n] @
-        rhs^T) and K5 (lhs^T dout per expert). Rows outside `dst` are the
-        layout's zero rows, as the model fills them (all rows where dst is
-        None)."""
+        rhs^T) and, unless not `k5`, K5 (lhs^T dout per expert). Rows
+        outside `dst` are the layout's zero rows, as the model fills them
+        (all rows where dst is None)."""
         def rows(width, scale=1.0):
             if dst is None:
                 return rand(m, width, dtype=dtype, scale=scale)
@@ -493,13 +501,16 @@ def phase_gmm(G):
 
         out = G._gmm_cuda(lhs, rhs, tile_group, **kw)
         dlhs = G._gmm_cuda(dout, rhs, tile_group, transpose_rhs=True, **kw)
-        drhs = G._tgmm_cuda(lhs, dout, tile_group, e, **kw)
         torch.cuda.synchronize()
         want = G._gmm_plain(lf, rf, tile_group, **kw)
         want_t = G._gmm_plain(df, rf, tile_group, transpose_rhs=True, **kw)
-        want_d = G._tgmm_plain(lf, df, tile_group, e, **kw)
         e_gmm = worst(close(f"K4 [{tag}]", out, want),
                       close(f"K4 dlhs [{tag}]", dlhs, want_t))
+        if not k5:
+            print(f"gmm kernels [{tag}]: K4 {fmt(e_gmm)}; limit rel {rel}: ok", flush=True)
+            return None
+        drhs = G._tgmm_cuda(lhs, dout, tile_group, e, **kw)
+        want_d = G._tgmm_plain(lf, df, tile_group, e, **kw)
         e_tgmm = close(f"K5 [{tag}]", drhs, want_d, per_expert=True)
         for x in empty:
             check(bool((drhs[x] == 0).all()), f"K5 [{tag}]: expert {x} has no tiles, "
@@ -510,9 +521,14 @@ def phase_gmm(G):
         if not timed:
             return None
         # One writer per output tile: a second launch gives the same bits.
-        check(torch.equal(drhs, G._tgmm_cuda(lhs, dout, tile_group, e, **kw)),
-              f"K5 [{tag}]: two launches on the same inputs differ")
-        print(f"deterministic [{tag}]: K5 bitwise equal over two launches", flush=True)
+        again = {"K4": (out, G._gmm_cuda(lhs, rhs, tile_group, **kw)),
+                 "K4 dlhs": (dlhs, G._gmm_cuda(dout, rhs, tile_group, transpose_rhs=True, **kw)),
+                 "K5": (drhs, G._tgmm_cuda(lhs, dout, tile_group, e, **kw))}
+        for name, (first, second) in again.items():
+            check(torch.equal(first, second), f"{name} [{tag}]: two launches on the same "
+                                              f"inputs differ")
+        print(f"deterministic [{tag}]: K4, K4 dlhs and K5 bitwise equal over two launches",
+              flush=True)
 
         el = lhs.element_size()
         flops = 2 * m * k * n
@@ -568,6 +584,11 @@ def phase_gmm(G):
          dtype=torch.float32, empty=(0, 7))
     dst, tile_group, m = routed(1024, e, block_m=256)
     case(f"block_m 256, m{m} k256 n384", dst, tile_group, m, e, 256, 384, block_m=256)
+    # Ids past the last expert (never made by the layout) read as E - 1 in
+    # K4 and in its plain version; K5's plain version takes no such id.
+    past = torch.tensor([0, e, 3, e + 1, 100, e - 1, 2, e], dtype=torch.int32, device="cuda")
+    case(f"tile ids {past.tolist()} over {e} experts, m1024 k256 n384", None, past, 1024, e,
+         256, 384, k5=False)
     return {"gmm": main["gmm"], "tgmm": main["tgmm"]}
 
 

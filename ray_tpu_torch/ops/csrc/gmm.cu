@@ -30,26 +30,37 @@
 //   An expert with no tiles gets zeros, where the reference leaves its block
 //   unwritten (NaN).
 //
-// K4 (both types) and float32 K5 run on WMMA: 256 threads (8 warps, 4 x 2),
-// each warp owning 32 x 64 of the tile as 2 x 4 accumulators (16 x 16 x
-// 16, bf16 in, float out). The contraction runs in stages of 32: each stage
-// is read from device memory into registers while the tensor cores work on
-// the previous one from shared memory. A float operand is split in bf16 hi
-// + lo as in flash_common.cuh (a.hi b.hi + a.lo b.hi + a.hi b.lo, about 16
-// bits of mantissa).
+// float32 K4 and K5 run on WMMA: 256 threads (8 warps, 4 x 2), each warp
+// owning 32 x 64 of the tile as 2 x 4 accumulators (16 x 16 x 16, bf16 in,
+// float out). The contraction runs in stages of 32: each stage is read from
+// device memory into registers while the tensor cores work on the previous
+// one from shared memory. A float operand is split in bf16 hi + lo as in
+// flash_common.cuh (a.hi b.hi + a.lo b.hi + a.hi b.lo, about 16 bits of
+// mantissa).
 //
-// bf16 K5 runs on a Hopper kernel (tgmm_sm90; hopper.cuh). Two consumer
-// warpgroups each hold a 64 (k) x 128 (n) float accumulator in registers.
-// A stage is 64 layout rows: lhs [64 rows][128 k] and dout [64 rows][128 n],
-// two 64-column TMA boxes each, 32 KB, in a ring of TG_NSTAGE stages on
-// mbarriers; the block walks its expert's block_m tiles 64 rows at a time,
-// and thread 0 starts each stage's TMA. Warpgroup w's product is a wgmma
-// from shared memory with both operands MN-major (the contraction, the
-// layout rows, is the rows of both tiles): A is lhs box w, M its 64 k
-// columns; B is both dout boxes, N 128. The accumulator is written once,
-// as bf16, straight from registers. Blocks differ in work by the size of
-// their expert, so the experts are taken largest first: the grid's expert
-// slot z runs the expert of rank z by tile count.
+// bf16 K4 and K5 run on Hopper kernels (hopper.cuh): two consumer
+// warpgroups, each holding a 64 x 128 float accumulator in registers, fed
+// by a ring of 3 stages of 32 KB (two 64 x 64 TMA boxes per operand) on
+// mbarriers, which thread 0 refills; two blocks fit on an SM. The
+// accumulator is written once, as bf16, straight from registers.
+// - K4 (gmm_sm90<TRANS>): a stage is 64 of K. A is lhs rows [row0, row0 +
+//   128) x 64 k, one K-major box per warpgroup. B is rhs[e] through a rank-3
+//   map, so that rows past K or N read as zeros within expert e: in the
+//   forward [64 k][128 n], two 64-column boxes read MN-major; in the dlhs
+//   form (rhs [E][N][K]) [128 n][64 k], two 64-row boxes stacked BOX_BYTES
+//   apart and read K-major. The stacking is the layout of one 128-row
+//   K-major tile only while a stage is exactly one box (64) deep: the
+//   descriptor's step to the next box (desc_k_major) is never taken. Each
+//   k16 step is one m64n128k16 product per warpgroup. The products of the
+//   last stage stay in flight while the stage before is handed back to TMA.
+// - K5 (tgmm_sm90): a stage is 64 layout rows: lhs [64 rows][128 k] and
+//   dout [64 rows][128 n], two 64-column boxes each; the block walks its
+//   expert's block_m tiles 64 rows at a time. Warpgroup w's product has
+//   both operands MN-major (the contraction, the layout rows, is the rows
+//   of both tiles): A is lhs box w, M its 64 k columns; B is both dout
+//   boxes, N 128. Blocks differ in work by the size of their expert, so the
+//   experts are taken largest first: the grid's expert slot z runs the
+//   expert of rank z by tile count.
 //
 // Bound on an H100 SXM at the main path (mixtral-small, batch 2, sequence
 // 2048, top-2 of 8: 8192 (token, expert) pairs in M = 9216 layout rows): a
@@ -58,12 +69,14 @@
 // (K 3584, N 1024), dlhs and drhs are the same work. Every launch is bound by
 // operations.
 //
-// What these designs leave on the table: K4 still runs WMMA through shared
-// memory with register-staged loads. K5's Hopper kernel reads each operand
-// tile from L2 once per 128 x 128 output tile (about 1 GB per launch at the
-// main path), starts TMA from a consumer thread instead of a producer warp,
-// drains its products every stage, and has no persistent blocks to hide
-// each block's start and its stores. Float stages take 3 products each.
+// What these designs leave on the table: each 128 x 128 output tile reads
+// its operands from L2 on its own, 2 x 128 x (K or the expert's rows) x 2
+// bytes (about 1 GB per launch at the main path, for K4 and K5 alike);
+// TMA is started by a consumer thread instead of a producer warp, and
+// every stage ends in a barrier of both warpgroups; no persistent blocks
+// hide a block's start and its stores behind the next tile's loads; no
+// cluster shares a tile by TMA multicast. Float stages take 3 products
+// each.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -228,8 +241,9 @@ __device__ __forceinline__ void zero(FragC (&acc)[FM][FN]) {
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 }
 
-// K4. Grid (n tiles, m tiles). out [m][n] = lhs [m][k] @ rhs[e] with rhs[e]
-// [k][n], or [n][k] read transposed when TRANS.
+// K4 on WMMA (float32; bf16 runs gmm_sm90). Grid (n tiles, m tiles). out
+// [m][n] = lhs [m][k] @ rhs[e] with rhs[e] [k][n], or [n][k] read
+// transposed when TRANS.
 template <typename T, bool TRANS>
 __global__ void __launch_bounds__(NTHREADS)
     gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
@@ -460,6 +474,114 @@ int launch_tgmm_sm90(const void* lhs, const void* dout, const void* tile_group, 
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ K4, bf16: Hopper
+
+constexpr int GM_NSTAGE = 3;                        // ring depth
+constexpr int GM_DEPTH = hopper::BOX_COLS;          // K per stage: one box
+constexpr int GM_THREADS = 2 * hopper::WG_THREADS;  // two consumer warpgroups
+
+// A stage: lhs [128 rows][64 k], one 64-row box per warpgroup, and rhs[e]'s
+// [64 k][128 n] (two 64-column boxes) or, when TRANS, [128 n][64 k] (two
+// 64-row boxes).
+struct GmmSmem {
+  alignas(1024) unsigned char lhs[GM_NSTAGE][2 * hopper::BOX_BYTES];
+  alignas(1024) unsigned char rhs[GM_NSTAGE][2 * hopper::BOX_BYTES];
+  uint64_t full[GM_NSTAGE];
+};
+
+// Grid (n tiles, m tiles). out [m][n] = lhs [m][k] @ rhs[e], lhs through
+// the [1][M][K] map tm_lhs, rhs through tm_rhs: [E][K][N], or [E][N][K]
+// read transposed when TRANS.
+template <bool TRANS>
+__global__ void __launch_bounds__(GM_THREADS, 2)
+    gmm_sm90(const __grid_constant__ CUtensorMap tm_lhs,
+             const __grid_constant__ CUtensorMap tm_rhs, const int* __restrict__ tile_group,
+             bf16* __restrict__ out, int m, int k, int n, int num_groups, int block_m) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  GmmSmem& sm = *reinterpret_cast<GmmSmem*>(align_1024(smem_raw));
+  const int t = threadIdx.x, wg = t / WG_THREADS;
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
+  const int e = min(max(tile_group[row0 / block_m], 0), num_groups - 1);
+  const int n_stages = (k + GM_DEPTH - 1) / GM_DEPTH;
+
+  // Stage `it` (k [64 it, 64 it + 64)) into slot s; one thread. Boxes past
+  // K or N arrive as zeros and still count their bytes.
+  auto load_stage = [&](int s, int it) {
+    const int k0 = it * GM_DEPTH;
+    mbar_arrive_expect_tx(&sm.full[s], 4 * BOX_BYTES);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      tma_load_3d(sm.lhs[s] + h * BOX_BYTES, &tm_lhs, &sm.full[s], k0, row0 + 64 * h, 0);
+    if constexpr (TRANS) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        tma_load_3d(sm.rhs[s] + h * BOX_BYTES, &tm_rhs, &sm.full[s], k0, col0 + 64 * h, e);
+    } else {
+      tma_load_tile<BN>(sm.rhs[s], &tm_rhs, &sm.full[s], k0, e, col0);
+    }
+  };
+
+  if (t == 0) {
+    for (int s = 0; s < GM_NSTAGE; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0)
+    for (int s = 0; s < GM_NSTAGE && s < n_stages; ++s) load_stage(s, s);
+
+  float acc[BN / 2];  // out rows row0 + 64 wg.. [64][128]
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_stages; ++it) {
+    const int s = it % GM_NSTAGE;
+    mbar_wait(&sm.full[s], (it / GM_NSTAGE) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < GM_DEPTH / 16; ++ks) {
+      const uint64_t a = desc_k_major(sm.lhs[s] + wg * BOX_BYTES, ks);
+      if constexpr (TRANS)
+        wgmma_ss_n128<0, 0>(acc, a, desc_k_major(sm.rhs[s], ks), 1);
+      else
+        wgmma_ss_n128<0, 1>(acc, a, desc_mn_major(sm.rhs[s], ks), 1);
+    }
+    wgmma_commit();
+    // This stage's products stay in flight; the previous stage's have
+    // retired in this warpgroup, and after the barrier in both: refill it.
+    wgmma_wait<1>();
+    __syncthreads();
+    if (t == 0 && it >= 1 && it - 1 + GM_NSTAGE < n_stages)
+      load_stage((it - 1) % GM_NSTAGE, it - 1 + GM_NSTAGE);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  hopper::store_acc<BN>(out, acc, n, row0 + 64 * wg, m, col0, n);
+}
+
+template <bool TRANS>
+int launch_gmm_sm90(const void* lhs, const void* rhs, const void* tile_group, void* out, int m,
+                    int k, int n, int num_groups, int block_m, cudaStream_t stream) {
+  CUtensorMap tm_lhs, tm_rhs;
+  cudaError_t err = hopper::encode_tiles(&tm_lhs, lhs, 1, m, k);
+  if (err == cudaSuccess)
+    err = TRANS ? hopper::encode_tiles(&tm_rhs, rhs, num_groups, n, k)
+                : hopper::encode_tiles(&tm_rhs, rhs, num_groups, k, n);
+  if (err != cudaSuccess) return err;
+  const int smem = hopper::smem_bytes<GmmSmem>();
+  err = allow_smem(gmm_sm90<TRANS>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + BN - 1) / BN, m / BM);
+  gmm_sm90<TRANS><<<grid, GM_THREADS, smem, stream>>>(tm_lhs, tm_rhs,
+                                                      static_cast<const int*>(tile_group),
+                                                      static_cast<bf16*>(out), m, k, n,
+                                                      num_groups, block_m);
+  return cudaGetLastError();
+}
+
 }  // namespace grouped
 
 // Each returns a cudaError_t; the caller checks shapes, types and alignment.
@@ -468,11 +590,10 @@ extern "C" int gmm(const void* lhs, const void* rhs, const void* tile_group, voi
                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return transpose_rhs
-               ? grouped::launch_gmm<flash::bf16, true>(lhs, rhs, tile_group, out, m, k, n,
-                                                         num_groups, block_m, s)
-               : grouped::launch_gmm<flash::bf16, false>(lhs, rhs, tile_group, out, m, k, n,
-                                                          num_groups, block_m, s);
+    return transpose_rhs ? grouped::launch_gmm_sm90<true>(lhs, rhs, tile_group, out, m, k, n,
+                                                          num_groups, block_m, s)
+                         : grouped::launch_gmm_sm90<false>(lhs, rhs, tile_group, out, m, k, n,
+                                                           num_groups, block_m, s);
   return transpose_rhs ? grouped::launch_gmm<float, true>(lhs, rhs, tile_group, out, m, k, n,
                                                           num_groups, block_m, s)
                        : grouped::launch_gmm<float, false>(lhs, rhs, tile_group, out, m, k, n,
@@ -494,3 +615,6 @@ extern "C" int tgmm(const void* lhs, const void* dout, const void* tile_group, v
 extern "C" int tgmm_sm90_smem_bytes(int num_groups) {
   return hopper::smem_bytes<grouped::TgmmSmem>() + 4 * (num_groups + 1);
 }
+
+// Dynamic shared memory per block of the bf16 K4 (both forms).
+extern "C" int gmm_sm90_smem_bytes() { return hopper::smem_bytes<grouped::GmmSmem>(); }

@@ -11,6 +11,13 @@
 // the last stage's products in flight while the stage before is refilled;
 // BY_SIZE takes the experts largest first (as built) or in id order (the
 // simple grid); NWG consumer warpgroups, a (64 NWG) x 128 output tile.
+// K4 (gmm_variant<TRANS, NJ, RASTER>): NJ m64n128 accumulators per
+// warpgroup, a 128 x (128 NJ) output tile (NJ 2: 4 stages, one block per
+// SM); RASTER runs the blocks in groups of GM_GROUP m tiles, m fastest
+// within a group, so that the blocks reading one column strip of rhs[e]
+// run together. Both sum as the built kernel does. The WMMA kernel the
+// bf16 K4 replaced (gmm_kernel<bf16>) is timed beside them; it sums in
+// another order.
 #include "flash_fwd.cu"
 #include "gmm.cu"
 
@@ -430,6 +437,130 @@ int launch_tgmm_variant(const void* lhs, const void* dout, const void* tile_grou
   return cudaGetLastError();
 }
 
+
+constexpr int GM_GROUP = 8;  // m tiles per group of the RASTER order
+
+template <int NST, int NJ>
+struct GmmSmem {
+  alignas(1024) unsigned char lhs[NST][2 * hopper::BOX_BYTES];
+  alignas(1024) unsigned char rhs[NST][2 * NJ * hopper::BOX_BYTES];
+  uint64_t full[NST];
+};
+
+template <bool TRANS, int NJ, bool RASTER>
+__global__ void __launch_bounds__(2 * hopper::WG_THREADS, NJ == 1 ? 2 : 1)
+    gmm_variant(const __grid_constant__ CUtensorMap tm_lhs,
+                const __grid_constant__ CUtensorMap tm_rhs, const int* __restrict__ tile_group,
+                bf16* __restrict__ out, int m, int k, int n, int num_groups, int block_m) {
+  using namespace hopper;
+  constexpr int NST = NJ == 1 ? 3 : 4, BNV = 128 * NJ;
+  using Smem = GmmSmem<NST, NJ>;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  const int t = threadIdx.x, wg = t / WG_THREADS;
+  int col0, row0;
+  if constexpr (RASTER) {
+    const int mt = m / 128, per_group = GM_GROUP * ((n + BNV - 1) / BNV);
+    const int first = blockIdx.x / per_group * GM_GROUP, r = blockIdx.x % per_group;
+    const int rows = min(GM_GROUP, mt - first);
+    row0 = (first + r % rows) * 128;
+    col0 = r / rows * BNV;
+  } else {
+    col0 = blockIdx.x * BNV;
+    row0 = blockIdx.y * 128;
+  }
+  const int e = min(max(tile_group[row0 / block_m], 0), num_groups - 1);
+  const int n_stages = (k + 63) / 64;
+
+  auto load_stage = [&](int s, int it) {
+    const int k0 = it * 64;
+    mbar_arrive_expect_tx(&sm.full[s], (2 + 2 * NJ) * BOX_BYTES);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      tma_load_3d(sm.lhs[s] + h * BOX_BYTES, &tm_lhs, &sm.full[s], k0, row0 + 64 * h, 0);
+    if constexpr (TRANS) {
+#pragma unroll
+      for (int h = 0; h < 2 * NJ; ++h)
+        tma_load_3d(sm.rhs[s] + h * BOX_BYTES, &tm_rhs, &sm.full[s], k0, col0 + 64 * h, e);
+    } else {
+      tma_load_tile<BNV>(sm.rhs[s], &tm_rhs, &sm.full[s], k0, e, col0);
+    }
+  };
+  if (t == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0)
+    for (int s = 0; s < NST && s < n_stages; ++s) load_stage(s, s);
+
+  float acc[NJ][64];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+  for (int it = 0; it < n_stages; ++it) {
+    const int s = it % NST;
+    mbar_wait(&sm.full[s], (it / NST) & 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) fence_regs(acc[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t a = desc_k_major(sm.lhs[s] + wg * BOX_BYTES, ks);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const unsigned char* b = sm.rhs[s] + 2 * j * BOX_BYTES;
+        if constexpr (TRANS) wgmma_ss_n128<0, 0>(acc[j], a, desc_k_major(b, ks), 1);
+        else wgmma_ss_n128<0, 1>(acc[j], a, desc_mn_major(b, ks), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    __syncthreads();
+    if (t == 0 && it >= 1 && it - 1 + NST < n_stages) load_stage((it - 1) % NST, it - 1 + NST);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    fence_regs(acc[j]);
+    store_acc<128>(out, acc[j], n, row0 + 64 * wg, m, col0 + 128 * j, n);
+  }
+}
+
+template <bool TRANS, int NJ, bool RASTER>
+int launch_gmm_variant(const void* lhs, const void* rhs, const void* tile_group, void* out, int m,
+                       int k, int n, int num_groups, int block_m) {
+  CUtensorMap tm_lhs, tm_rhs;
+  cudaError_t err = hopper::encode_tiles(&tm_lhs, lhs, 1, m, k);
+  if (err == cudaSuccess)
+    err = TRANS ? hopper::encode_tiles(&tm_rhs, rhs, num_groups, n, k)
+                : hopper::encode_tiles(&tm_rhs, rhs, num_groups, k, n);
+  if (err != cudaSuccess) return err;
+  constexpr int NST = NJ == 1 ? 3 : 4;
+  const int smem = hopper::smem_bytes<GmmSmem<NST, NJ>>();
+  err = cudaFuncSetAttribute(gmm_variant<TRANS, NJ, RASTER>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nt = (n + 128 * NJ - 1) / (128 * NJ), mt = m / 128;
+  const dim3 grid = RASTER ? dim3(nt * mt) : dim3(nt, mt);
+  gmm_variant<TRANS, NJ, RASTER><<<grid, 2 * hopper::WG_THREADS, smem>>>(
+      tm_lhs, tm_rhs, static_cast<const int*>(tile_group), static_cast<bf16*>(out), m, k, n,
+      num_groups, block_m);
+  return cudaGetLastError();
+}
+
+template <bool TRANS>
+int launch_gmm_by_variant(int variant, const void* lhs, const void* rhs, const void* tile_group,
+                       void* out, int m, int k, int n, int num_groups, int block_m) {
+  switch (variant) {
+    case 0: return launch_gmm_variant<TRANS, 2, false>(lhs, rhs, tile_group, out, m, k, n, num_groups, block_m);
+    case 1: return launch_gmm_variant<TRANS, 1, true>(lhs, rhs, tile_group, out, m, k, n, num_groups, block_m);
+    case 2: return grouped::launch_gmm<bf16, TRANS>(lhs, rhs, tile_group, out, m, k, n, num_groups, block_m, 0);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace variants
 
 // Each launches one variant on the default stream and returns a cudaError_t.
@@ -458,4 +589,16 @@ extern "C" int tgmm_variant(const void* lhs, const void* dout, const void* tile_
     case 3: return launch_tgmm_variant<4, true, true, 4>(lhs, dout, tile_group, out, m, k, n, num_groups, block_m);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// variant: 0 the 128 x 256 tile (4 stages, one block per SM); 1 the blocks
+// in groups of 8 m tiles, m fastest; 2 the WMMA kernel the bf16 K4
+// replaced. transpose_rhs as for gmm (the dlhs form).
+extern "C" int gmm_variant(const void* lhs, const void* rhs, const void* tile_group, void* out,
+                           int m, int k, int n, int num_groups, int block_m, int transpose_rhs,
+                           int variant) {
+  using namespace variants;
+  if (transpose_rhs)
+    return launch_gmm_by_variant<true>(variant, lhs, rhs, tile_group, out, m, k, n, num_groups, block_m);
+  return launch_gmm_by_variant<false>(variant, lhs, rhs, tile_group, out, m, k, n, num_groups, block_m);
 }

@@ -204,3 +204,38 @@ def test_argument_checks_accept_both_orientations_and_tgmm():
     with pytest.raises(ValueError, match="multiples of 8"):
         tgmm._check_tgmm_args(lhs, torch.zeros((256, 100), dtype=torch.bfloat16),
                               tile_group, 128)
+
+
+# Lines of an `nvcc -Xptxas -v` report as the build keeps it: the bf16 K4 in
+# both forms (a bool template argument), a K2 instance (an int one), K5
+# and a float32 K4 (no template argument of the name's form).
+_PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN7grouped8gmm_sm90ILb0EEEv14CUtensorMap_stS1_PKiP13__nv_bfloat16iiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN7grouped8gmm_sm90ILb0EEEv14CUtensorMap_stS1_PKiP13__nv_bfloat16iiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 94 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN7grouped8gmm_sm90ILb1EEEv14CUtensorMap_stS1_PKiP13__nv_bfloat16iiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN7grouped8gmm_sm90ILb1EEEv14CUtensorMap_stS1_PKiP13__nv_bfloat16iiiii
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5flash8dkv_sm90ILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiifi' for 'sm_90a'
+ptxas info    : Used 225 registers, used 1 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN7grouped9tgmm_sm90E14CUtensorMap_stS0_PKiP13__nv_bfloat16iiiii' for 'sm_90a'
+ptxas info    : Used 90 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN7grouped10gmm_kernelIfLb1EEEvPKT_S3_PKiPS1_iiiii' for 'sm_90a'
+ptxas info    : Used 128 registers, 392 bytes cmem[0]
+"""
+
+
+def test_smoke_names_kernels_in_ptxas_reports():
+    """chip_smoke.py reads each kernel's registers and spills from the build's
+    report under the names of its source, which its table of Hopper kernels
+    uses: both forms of the bf16 K4 must be told apart."""
+    import chip_smoke
+
+    assert chip_smoke.ptxas_kernels(_PTXAS_REPORT) == [
+        ("gmm_sm90<false>", 94, 0), ("gmm_sm90<true>", 96, 12), ("dkv_sm90<128>", 225, 0),
+        ("tgmm_sm90", 90, 0), ("gmm_kernel", 128, 0)]
+    assert {"gmm_sm90<false>", "gmm_sm90<true>", "dkv_sm90<128>",
+            "tgmm_sm90"} <= set(chip_smoke.SM90_KERNELS)

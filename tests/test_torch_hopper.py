@@ -5,7 +5,9 @@ Each probe (`tests/csrc/hopper_probe.cu`) is one block: TMA loads bf16
 tiles with the 128-byte swizzle, `wgmma` multiplies them through shared
 memory descriptors, and the accumulator is written out through the
 layout `hopper.cuh` states. Mode 0 reads both operands K-major, mode 1
-reads B MN-major (the transpose bit), and mode 2 feeds the bf16-rounded
+reads B MN-major (the transpose bit), each at N 64 and at N 128 (the
+products of the bf16 K4's dlhs form and forward, B then 128 rows of two
+stacked boxes or 128 columns of two boxes), and mode 2 feeds the bf16-rounded
 accumulator of a mode-0 product as the register A operand of a second
 product whose B is MN-major, N 64 or 128, and mode 3 reads both operands
 MN-major at N 128 (K5's product, A^T B). A wrong swizzle, descriptor or
@@ -45,11 +47,13 @@ def probe(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,n", [(0, 64), (1, 64), (2, 64), (2, 128), (3, 128)])
+@pytest.mark.parametrize("mode,n", [(0, 64), (1, 64), (2, 64), (2, 128), (3, 128),
+                                    (0, 128), (1, 128)])
 def test_hopper_blocks_match_matmul(probe, mode, n):
     gen = torch.Generator(device="cuda").manual_seed(mode * 1000 + n)
+    b_shape = {0: (n, 64), 1: (64, n)}.get(mode, (64, 64))
     a, b, b2 = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
-                for shape in ((64, 64), (64, 64), (64, n)))
+                for shape in ((64, 64), b_shape, (64, n)))
     c = torch.full((64, n), float("nan"), device="cuda")
     assert probe(mode, n, a.data_ptr(), b.data_ptr(), b2.data_ptr(), c.data_ptr()) == 0
     af, bf = a.double(), b.double()

@@ -3,9 +3,12 @@
 card.
 
 Each variant must give bitwise the output of the built kernel: K1's
-overlap runs the same arithmetic in the same order, and K5's variants
-change the order of the blocks, the pipelining or the tile shape, never
-the order of a sum. Their times, alternated with the built kernel's in
+overlap runs the same arithmetic in the same order, and K5's and K4's
+variants change the order of the blocks, the pipelining or the tile
+shape, never the order of a sum. The one exception is the WMMA kernel
+that the bf16 K4 replaced, timed beside it: it sums in steps of 32 of K
+on 16 x 16 fragments, another order, so it is held to the plain version
+within `chip_smoke.py`'s limits instead. Their times, alternated with the built kernel's in
 one process at the main path's shapes, are printed; `PERF.md` records
 them. The tests need a CUDA card and `nvcc`, so they skip elsewhere. On
 the card:
@@ -40,7 +43,9 @@ def lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fwd_overlap.argtypes = lib.fwd_pair.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float, i]
     lib.tgmm_variant.argtypes = [p] * 4 + [i] * 6
-    lib.fwd_overlap.restype = lib.fwd_pair.restype = lib.tgmm_variant.restype = i
+    lib.gmm_variant.argtypes = [p] * 4 + [i] * 7
+    lib.fwd_overlap.restype = lib.fwd_pair.restype = i
+    lib.tgmm_variant.restype = lib.gmm_variant.restype = i
     return lib
 
 
@@ -117,3 +122,54 @@ def test_k5_variants_match_the_built_kernel(lib, k, n):
     ms = _fastest_ms(fns)
     print(f"K5 variants [m{m} k{k} n{n} bf16, least of {REPEATS} runs of {ITERS}]: "
           + "; ".join(f"{name} {t:.4f} ms" for name, t in ms.items()))
+
+
+K4_VARIANTS = ("128 x 256 tile, 4 stages", "blocks in groups of 8 m tiles",
+               "WMMA kernel it replaced")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,transpose", [
+    (1024, 3584, False), (3584, 1024, False),  # the main path's gate/up and down, timed
+    (1024, 3584, True), (3584, 1024, True),    # their dlhs forms, timed
+    (72, 200, False), (72, 200, True)])        # ragged widths
+def test_k4_variants_match_the_built_kernel(lib, k, n, transpose):
+    """rhs [E, k, n]; the forward multiplies lhs [M, k] by it, the dlhs
+    form dout [M, n] by its transpose."""
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    experts, tokens = (8, 4096) if k > 72 else (4, 300)
+    e_flat = torch.randn(tokens, experts, generator=gen, device="cuda").topk(2, dim=-1).indices
+    _, dst, tile_group, m = G.aligned_group_layout(e_flat.reshape(-1), experts)
+    width = n if transpose else k
+    lhs = torch.zeros((m, width), dtype=torch.bfloat16, device="cuda")
+    lhs[dst] = torch.randn(dst.numel(), width, generator=gen, device="cuda").to(torch.bfloat16)
+    rhs = (torch.randn(experts, k, n, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    kw = dict(block_m=128, transpose_rhs=transpose)
+    built = G._gmm_cuda(lhs, rhs, tile_group, **kw)
+    plain = G._gmm_plain(lhs.float(), rhs.float(), tile_group, **kw)
+    fns = {"built": lambda: G._gmm_cuda(lhs, rhs, tile_group, **kw)}
+    for variant, name in enumerate(K4_VARIANTS):
+        out = torch.empty_like(built)
+
+        def run(variant=variant, out=out):
+            assert lib.gmm_variant(lhs.data_ptr(), rhs.data_ptr(), tile_group.data_ptr(),
+                                   out.data_ptr(), m, width, out.shape[1], experts, 128,
+                                   int(transpose), variant) == 0
+
+        run()
+        torch.cuda.synchronize()
+        if name == "WMMA kernel it replaced":  # another order of sums: the smoke's limits
+            tol = chip_smoke.GMM_TOL
+            chip_smoke.assert_close(name, out, plain, tol * float(plain.pow(2).mean().sqrt()),
+                                    tol, chip_smoke.REL_TOL, tile=chip_smoke.GMM_TILE)
+        else:
+            assert torch.equal(out, built), name
+        fns[name] = run
+    if k == 72:
+        return
+    ms = _fastest_ms(fns)
+    form = "dlhs" if transpose else "forward"
+    print(f"K4 variants [{form}, m{m} k{width} n{built.shape[1]} bf16, least of {REPEATS} "
+          f"runs of {ITERS}]: " + "; ".join(f"{name} {t:.4f} ms" for name, t in ms.items()))
