@@ -47,7 +47,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    model needs;
 9. dispatch probe: `resolve_moe_dispatch` times "capacity" against "gmm"
    (its disk cache in a temporary directory); the pick is printed, not
-   checked.
+   checked;
+10. attention kernels at this slice's shapes: K1-K3 against their plain
+   versions, as in phase 3, at the long-context sweep's (16 heads of 128,
+   T 8192, 16384 and 32768, held on 16, 4 and 2 heads where the plain
+   versions' float32 score matrices must fit, timed on all 16) and at
+   GPT's (gpt2-large b4 s1024: 80 heads of 64); times as in phase 3;
+11. GPT: a 2-layer model at gpt2-large's widths on the card against the
+   same weights on the CPU's plain path (bf16 logits and loss); then
+   gpt2-large at full width and depth (36 layers, float32 parameters,
+   bf16 compute, remat), batch 4, sequence 1024, one warm-up and three
+   timed steps; the loss is finite and falls, and K1-K3 were launched as
+   often as the model needs;
+12. long context: `ray_tpu_torch.bench.longctx_sweep` as the bench runs
+   it (llama-1b, bf16 parameters, batch 1, T 8192, 16384 and 32768, 5
+   timed steps each, chunked loss), with each point's peak memory; a
+   later point may be recorded as out of memory; losses finite, and
+   K1-K3 launched as often as the points need.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -96,6 +112,18 @@ F32_FLOPS = 67e12
 MAIN = dict(bh=32, tq=2048, tk=2048, d=128, causal=True)  # llama-1b b2 s2048
 MIXTRAL_ATTN = dict(bh=32, tq=2048, tk=2048, d=64, causal=True)  # mixtral-small b2 s2048
 BATCH, SEQ, TIMED_STEPS = 2, 2048, 3
+# The long-context sweep's attention (llama-1b b1: 16 heads of 128):
+# (heads, T, heads held against the plain versions, None for all).
+LONG_ATTN = ((16, 8192, None), (16, 16384, 4), (16, 32768, 2))
+# gpt2-large b4 s1024: 4 x 20 heads of 64.
+GPT_BATCH, GPT_SEQ = 4, 1024
+GPT_ATTN = dict(bh=GPT_BATCH * 20, tq=GPT_SEQ, tk=GPT_SEQ, d=64, causal=True)
+# bf16 GPT logits on the card against the CPU's plain path: each side
+# rounds activations to bf16 at other points (about 1% normwise at
+# gpt2-tiny against the flax model, tests/test_torch_gpt.py).
+GPT_LOGITS_REL = 2e-2
+# The bench's default --steps: the sweep times max(5, steps // 2) steps.
+LONGCTX_BENCH_STEPS = 10
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -281,22 +309,31 @@ def library_flash_bwd(q, k, v, do, causal: bool, scale: float):
         scale=scale)
 
 
-def phase_kernels(A):
-    """Holds K1-K3 against their plain versions; returns each kernel's
-    numbers at the main path's shape."""
+def attention_cases(A, seed):
+    """(case, rand): `case` holds K1-K3 against their plain versions at
+    one shape and, where `timed`, returns each kernel's numbers there;
+    `rand` draws bf16 (or `dtype`) normal tensors on the card from
+    `seed`."""
     import torch
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    def case(bh, tq, tk, d, causal, dtype=torch.bfloat16, timed=False):
+    def case(bh, tq, tk, d, causal, dtype=torch.bfloat16, timed=False, check_bh=None):
+        """With `check_bh`, the kernels run on all `bh` heads and are held
+        against the plain versions on the first `check_bh` of them, where
+        the plain versions are also timed: at long T the float32 score
+        matrices of every head would not fit on the card."""
+        cb = check_bh or bh
         tag = f"bh{bh} tq{tq} tk{tk} d{d} {'causal' if causal else 'full'} {str(dtype)[6:]}"
+        if cb < bh:
+            tag += f", held on {cb} heads"
         q, k, v, do = rand(bh, tq, d, dtype=dtype), rand(bh, tk, d, dtype=dtype), \
             rand(bh, tk, d, dtype=dtype), rand(bh, tq, d, dtype=dtype)
-        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        qf, kf, vf, dof = (x[:cb].float() for x in (q, k, v, do))
         kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
         f32 = dtype == torch.float32
         o_tol = F32_TOL if f32 else O_TOL
@@ -307,27 +344,32 @@ def phase_kernels(A):
         o, lse = A._flash_fwd_cuda(q, k, v, **kw)
         o_p, lse_p = A._flash_fwd_plain(qf, kf, vf, **kw)
         torch.cuda.synchronize()
-        e_fwd = worst(assert_close(f"K1 o [{tag}]", o, o_p, o_tol, o_tol, rel),
-                      assert_close(f"K1 lse [{tag}]", lse, lse_p, lse_tol, 0.0))
-        # The backward kernels take the plain forward's lse and delta, so
-        # each is held against its plain version on identical inputs.
-        delta = (dof * o_p).sum(-1)
-        dk, dv = A._flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
-        dk_p, dv_p = A._flash_bwd_dkv_plain(qf, kf, vf, dof, lse_p, delta, **kw)
-        dq = A._flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, **kw)
-        dq_p = A._flash_bwd_dq_plain(qf, kf, vf, dof, lse_p, delta, **kw)
+        e_fwd = worst(assert_close(f"K1 o [{tag}]", o[:cb], o_p, o_tol, o_tol, rel),
+                      assert_close(f"K1 lse [{tag}]", lse[:cb], lse_p, lse_tol, 0.0))
+        # The backward kernels take the plain forward's lse and delta (on
+        # the heads not held, K1's), so each is held against its plain
+        # version on identical inputs.
+        delta_p = (dof * o_p).sum(-1)
+        lse_in, delta = lse_p, delta_p
+        if cb < bh:
+            lse_in = torch.cat([lse_p, lse[cb:]])
+            delta = torch.cat([delta_p, (do[cb:].float() * o[cb:].float()).sum(-1)])
+        dk, dv = A._flash_bwd_dkv_cuda(q, k, v, do, lse_in, delta, **kw)
+        dk_p, dv_p = A._flash_bwd_dkv_plain(qf, kf, vf, dof, lse_p, delta_p, **kw)
+        dq = A._flash_bwd_dq_cuda(q, k, v, do, lse_in, delta, **kw)
+        dq_p = A._flash_bwd_dq_plain(qf, kf, vf, dof, lse_p, delta_p, **kw)
         torch.cuda.synchronize()
-        e_dkv = worst(assert_close(f"K2 dk [{tag}]", dk, dk_p, g_tol, g_tol, rel),
-                      assert_close(f"K2 dv [{tag}]", dv, dv_p, g_tol, g_tol, rel))
-        e_dq = assert_close(f"K3 dq [{tag}]", dq, dq_p, g_tol, g_tol, rel)
+        e_dkv = worst(assert_close(f"K2 dk [{tag}]", dk[:cb], dk_p, g_tol, g_tol, rel),
+                      assert_close(f"K2 dv [{tag}]", dv[:cb], dv_p, g_tol, g_tol, rel))
+        e_dq = assert_close(f"K3 dq [{tag}]", dq[:cb], dq_p, g_tol, g_tol, rel)
         print(f"kernels [{tag}]: K1 {fmt(e_fwd)}; K2 {fmt(e_dkv)}; "
               f"K3 {fmt(e_dq)}; limit rel {rel}: ok", flush=True)
         if not timed:
             return None
         # One writer per output: a second launch gives the same bits.
         o2, lse2 = A._flash_fwd_cuda(q, k, v, **kw)
-        dk2, dv2 = A._flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, **kw)
-        dq2 = A._flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+        dk2, dv2 = A._flash_bwd_dkv_cuda(q, k, v, do, lse_in, delta, **kw)
+        dq2 = A._flash_bwd_dq_cuda(q, k, v, do, lse_in, delta, **kw)
         same = all(torch.equal(x, y) for x, y in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2),
                                                     (dq, dq2)))
         check(same, f"K1/K2/K3 [{tag}]: two launches on the same inputs differ")
@@ -352,30 +394,37 @@ def phase_kernels(A):
             lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
         # The library's flash backward gives dq, dk and dv in one call from
         # its own forward's o and lse: one yardstick for the K2 + K3 pair,
-        # held to the plain version first so that it computes the same.
+        # held to the plain version first (on the held heads) so that it
+        # computes the same.
         lib_bwd = library_flash_bwd(q4, k4, v4, do4, causal, kw["sm_scale"])
-        for name, got, want in zip(("dq", "dk", "dv"), lib_bwd(), (dq_p, dk_p, dv_p)):
-            assert_close(f"library {name} [{tag}]", got.view(bh, -1, d), want,
+        lib_held = lib_bwd if cb == bh else library_flash_bwd(
+            *(t[:cb].view(1, cb, -1, d) for t in (q, k, v, do)), causal, kw["sm_scale"])
+        for name, got, want in zip(("dq", "dk", "dv"), lib_held(), (dq_p, dk_p, dv_p)):
+            assert_close(f"library {name} [{tag}]", got.reshape(cb, -1, d), want,
                          g_tol, g_tol, rel)
+        del lib_held
         pair_lib_ms = time_ms(lib_bwd)
         res["flash_bwd_dkv"] = dict(
             max_abs_err=e_dkv[0],
-            ms=time_ms(lambda: A._flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, **kw)),
-            plain_ms=time_ms(lambda: A._flash_bwd_dkv_plain(qf, kf, vf, dof, lse_p, delta, **kw)),
+            ms=time_ms(lambda: A._flash_bwd_dkv_cuda(q, k, v, do, lse_in, delta, **kw)),
+            plain_ms=time_ms(lambda: A._flash_bwd_dkv_plain(qf, kf, vf, dof, lse_p, delta_p,
+                                                            **kw)),
             bound=bound(2 * qb + 4 * kb + 2 * rows, 8 * d * pairs, rate),
             library_ms=pair_lib_ms,
         )
         res["flash_bwd_dq"] = dict(
             max_abs_err=e_dq[0],
-            ms=time_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, **kw)),
-            plain_ms=time_ms(lambda: A._flash_bwd_dq_plain(qf, kf, vf, dof, lse_p, delta, **kw)),
+            ms=time_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, do, lse_in, delta, **kw)),
+            plain_ms=time_ms(lambda: A._flash_bwd_dq_plain(qf, kf, vf, dof, lse_p, delta_p,
+                                                           **kw)),
             bound=bound(3 * qb + 2 * kb + 2 * rows, 6 * d * pairs, rate),
             library_ms=pair_lib_ms,
         )
+        held = "" if cb == bh else f" on {cb} of {bh} heads"
         for name, r in res.items():
             lib = "" if name == "flash_fwd" else " for dq, dk and dv together"
             print(f"time {name} [{tag}]: kernel {r['ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+                  f"{r['plain_ms']:.3f} ms{held}, bound {r['bound'][0]:.4f} ms "
                   f"({r['bound'][1]}), library {r['library_ms']:.3f} ms{lib}",
                   flush=True)
         pair = res["flash_bwd_dkv"]["ms"] + res["flash_bwd_dq"]["ms"]
@@ -383,6 +432,15 @@ def phase_kernels(A):
               f"(dq, dk and dv in one call)", flush=True)
         return res
 
+    return case, rand
+
+
+def phase_kernels(A):
+    """Holds K1-K3 against their plain versions; returns each kernel's
+    numbers at the main path's shape."""
+    import torch
+
+    case, rand = attention_cases(A, seed=0)
     main = case(**MAIN, timed=True)
     # The Mixtral path's shape (mixtral-small b2 s2048: 16 heads of 64),
     # timed too: its times stand beside the Llama shape's in PERF.md.
@@ -693,6 +751,125 @@ def phase_probe(M):
           f"below {1 - M.PROBE_MARGIN:g} of gmm)", flush=True)
 
 
+def phase_long_kernels(A):
+    """K1-K3 at the two shapes this slice adds: the long-context sweep's
+    (llama-1b at batch 1, 16 heads of 128, T 8192-32768; held on a subset
+    of heads where the plain versions' score matrices of every head would
+    not fit, timed on all 16) and GPT's (gpt2-large at batch 4: 80 heads
+    of 64, T 1024, plain multi-head attention)."""
+    import torch
+
+    case, _ = attention_cases(A, seed=3)
+    for bh, t, held in LONG_ATTN:
+        case(bh, t, t, 128, True, timed=True, check_bh=held)
+        torch.cuda.empty_cache()
+    case(**GPT_ATTN, timed=True)
+    torch.cuda.empty_cache()
+
+
+def phase_gpt(A, card, bench_model, peak):
+    """GPT on the card: a 2-layer model at gpt2-large's widths against the
+    same weights on the CPU's plain path (bf16 logits and loss), then
+    gpt2-large at full width and depth trained from zero counts."""
+    import torch
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.gpt import CONFIGS as GPT_CONFIGS
+    from ray_tpu_torch.models.gpt import GPTForCausalLM
+    from ray_tpu_torch.models.llama import causal_lm_loss
+
+    base = GPT_CONFIGS["gpt2-large"]
+    small = replace(base, num_layers=2)
+    ids = torch.randint(0, base.vocab_size, (1, 256),
+                        generator=torch.Generator().manual_seed(4))
+    targets = torch.roll(ids, -1, dims=1)
+    on_card = GPTForCausalLM(small, device="cuda")
+    on_cpu = GPTForCausalLM(small, device="cpu")
+    on_cpu.load_state_dict(on_card.state_dict())
+    with torch.no_grad():
+        got = on_card(ids.cuda()).float().cpu()
+        want = on_cpu(ids).float()
+    loss_got, loss_want = (float(causal_lm_loss(x, targets)) for x in (got, want))
+    rel = float((got - want).norm() / want.norm())
+    check(bool(torch.isfinite(got).all()) and rel <= GPT_LOGITS_REL
+          and abs(loss_got - loss_want) <= GPT_LOGITS_REL * abs(loss_want),
+          f"GPT logits on the card vs the CPU: normwise {rel:.3e}, loss {loss_got} vs "
+          f"{loss_want} (limit {GPT_LOGITS_REL})")
+    print(f"GPT [gpt2-large widths, 2 layers, b1 s256, bf16]: logits on the card vs the "
+          f"CPU plain path normwise {rel:.2e}, loss {loss_got:.5f} vs {loss_want:.5f}; "
+          f"limit {GPT_LOGITS_REL}: ok", flush=True)
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    model = GPTForCausalLM(base, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    r = bench_model(model, GPT_BATCH, GPT_SEQ, TIMED_STEPS, peak)
+    launches = dict(A.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = r["losses"]
+    check(all(math.isfinite(x) for x in losses), f"GPT loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"GPT loss did not fall: {losses}")
+    steps, n = TIMED_STEPS + 1, base.num_layers
+    # remat: K1 in each block's forward and again in its recompute; K2
+    # and K3 once per block in backward.
+    per_step = {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+    for name, k in per_step.items():
+        check(launches[name] == k * steps,
+              f"GPT: {name} launched {launches[name]} times in {steps} steps, "
+              f"expected {k * steps}")
+    print(f"train gpt2-large (36 layers, 20 heads of 64, f32 params, bf16 compute, remat) "
+          f"b{GPT_BATCH} s{GPT_SEQ} on {card}: losses {[round(x, 4) for x in losses]}, "
+          f"{r['tokens_per_s']:.1f} tokens/s, step {r['step_ms']:.1f} ms, MFU "
+          f"{r['mfu']:.4f} of {peak:.3g} FLOP/s, peak memory {peak_gb:.2f} GB; "
+          f"launches {launches}", flush=True)
+
+
+def phase_longctx(A, card, peak):
+    """The bench's long-context sweep (`ray_tpu_torch.bench.longctx_sweep`)
+    as `python -m ray_tpu_torch.bench` runs it: llama-1b, bf16
+    parameters, batch 1, T 8192, 16384 and 32768, 5 timed steps each with
+    the chunked loss; a later point may be recorded as out of memory."""
+    import torch
+    from dataclasses import replace
+
+    from ray_tpu_torch.bench import LONGCTX_SEQS, longctx_sweep
+    from ray_tpu_torch.models.llama import CONFIGS
+
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    seqs = [int(x) for x in LONGCTX_SEQS.split(",")]
+    A.reset_launch_counts()
+    out = longctx_sweep(cfg, LONGCTX_BENCH_STEPS, peak, torch.device("cuda"), seqs)
+    launches = dict(A.LAUNCHES)
+    points = out["longctx"]
+    ran = [p for p in points if "oom" not in p]
+    check(len(points) == len(seqs) or "oom" in points[-1],
+          f"long-context sweep stopped early without an OOM: {points}")
+    for p in points:
+        if "oom" in p:
+            print(f"longctx llama-1b b1 s{p['seq']} on {card}: {p['oom']} (recorded; "
+                  "the sweep ends here)", flush=True)
+            continue
+        check(math.isfinite(p["loss"]), f"long-context loss not finite: {p}")
+        print(f"longctx llama-1b b1 s{p['seq']} bf16 on {card}: loss {p['loss']:.4f}, "
+              f"{p['tokens_per_s']:.1f} tokens/s, step {p['step_ms']:.1f} ms, MFU "
+              f"{p['mfu']:.4f} of {peak:.3g} FLOP/s, peak memory "
+              f"{p['peak_memory_gb']:.2f} GB", flush=True)
+    check(out["longctx_seq"] == seqs[0] and out["longctx_mfu"] == ran[0]["mfu"],
+          f"long-context headline is not the first point's: {out}")
+    # remat "nothing": per layer and step K1 twice, K2 and K3 once; a
+    # point that ran out of memory launched some before it stopped.
+    steps, n = max(5, LONGCTX_BENCH_STEPS // 2) + 1, cfg.num_layers
+    per_step = {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+    for name, k in per_step.items():
+        want = k * steps * len(ran)
+        ok = launches[name] == want if len(ran) == len(points) else launches[name] >= want
+        check(ok, f"long-context sweep: {name} launched {launches[name]} times, expected "
+                  f"{want} over {len(ran)} points of {steps} steps")
+    print(f"longctx sweep: {len(ran)} points measured, headline s{out['longctx_seq']} "
+          f"MFU {out['longctx_mfu']:.4f}; launches {launches}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -782,6 +959,15 @@ def main() -> int:
 
     # 9. dispatch probe
     phase_probe(M)
+    torch.cuda.empty_cache()
+
+    # 10. attention kernels at the long-context and GPT shapes
+    phase_long_kernels(A)
+    # 11. GPT: parity on a small input, then the gpt2-large path counted from zero
+    phase_gpt(A, card, bench_model, H100_BF16_PEAK_FLOPS)
+    torch.cuda.empty_cache()
+    # 12. the long-context sweep, counted from zero
+    phase_longctx(A, card, H100_BF16_PEAK_FLOPS)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.

@@ -4,7 +4,9 @@ It grows slice by slice beside `ray_tpu`, which stays the reference, and
 imports nothing of it. Slice 1 is the Llama training step: `models.llama`
 on the flash-attention kernels of `ops.attention`. Slice 2 is the
 Mixtral sparse-MoE training step: `models.mixtral` on the grouped-matmul
-kernels of `ops.gmm`. `bench` (`python -m ray_tpu_torch.bench`) drives
-both; `profile` breaks a step's device time down by kernel.
+kernels of `ops.gmm`. Slice 6 adds GPT (`models.gpt`), on the same
+attention kernels as Llama. `bench` (`python -m ray_tpu_torch.bench`)
+drives Llama, its long-context sweep and Mixtral; `profile` breaks a
+step's device time down by kernel.
 """
 from ._device import resolve_device  # noqa: F401

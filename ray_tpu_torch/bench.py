@@ -6,24 +6,37 @@ roll(ids, -1)`, ids from `np.random.RandomState(0)`). The Llama point
 (llama-1b) comes first; then, as the reference's `BENCH_MOE=1` phase,
 mixtral-small (8 experts, top-2) with `moe_lm_loss`, its dispatch chosen
 by `resolve_moe_dispatch` unless forced, MFU over the active parameters.
-Prints one JSON line.
+Between the two, as the reference does, the long-context sweep: the same
+Llama at batch 1 over `BENCH_LONGCTX_SEQS` (default 8192,16384,32768),
+`max(5, steps // 2)` timed steps each, with the chunked loss; a later
+point that runs out of device memory is recorded as such and ends the
+sweep. `BENCH_LONGCTX=0` or `--no-longctx` skips it. Prints one JSON line.
 
     python -m ray_tpu_torch.bench [--model llama-1b] [--steps 10]
-        [--moe-model mixtral-small] [--moe-dispatch auto] [--no-moe]
+        [--no-longctx] [--moe-model mixtral-small] [--moe-dispatch auto]
+        [--no-moe]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
+import traceback
 from dataclasses import replace
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ._device import card_description, resolve_device
-from .models.llama import CONFIGS, LlamaForCausalLM, causal_lm_loss
+from .models.llama import (
+    CONFIGS,
+    LlamaConfig,
+    LlamaForCausalLM,
+    causal_lm_loss,
+    chunked_causal_lm_loss,
+)
 from .models.mixtral import CONFIGS as MIXTRAL_CONFIGS
 from .models.mixtral import (
     DISPATCHES,
@@ -35,6 +48,7 @@ from .models.mixtral import (
 
 # Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet).
 H100_BF16_PEAK_FLOPS = 989e12
+LONGCTX_SEQS = "8192,16384,32768"
 
 
 def flops_per_token(n_params: float, cfg, seq_len: int) -> float:
@@ -107,6 +121,49 @@ def bench_model(model: torch.nn.Module, batch: int, seq: int, steps: int,
     }
 
 
+def longctx_sweep(cfg: LlamaConfig, steps: int, peak_flops: float,
+                  device: torch.device,
+                  seqs: Sequence[int]) -> Dict[str, object]:
+    """The reference's long-context sweep: a fresh Llama of `cfg` at batch
+    1 for each sequence length in `seqs`, `max(5, steps // 2)` timed
+    steps, `chunked_causal_lm_loss` (chunk 2048). Each point carries
+    `seq`, `tokens_per_s`, `step_ms`, `mfu`, `loss` (the last step's) and,
+    on the card, `peak_memory_gb`. A point after the first that runs out
+    of device memory is recorded as `{"seq", "oom"}` and ends the sweep;
+    any other failure, and any failure of the first point, raises. The
+    headline `longctx_*` fields are the first point's."""
+    points: List[Dict[str, object]] = []
+    for seq in seqs:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        model = None
+        try:
+            model = LlamaForCausalLM(cfg, device=device)
+            r = bench_model(model, 1, seq, max(5, steps // 2), peak_flops,
+                            loss_fn=chunked_causal_lm_loss)
+        except torch.cuda.OutOfMemoryError as exc:
+            if not points:
+                raise
+            points.append({"seq": seq, "oom": type(exc).__name__})
+            # The traceback's frames hold the optimizer and the activations.
+            traceback.clear_frames(exc.__traceback__)
+            r = None
+        del model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if r is None:
+            break
+        point = {"seq": seq, "tokens_per_s": r["tokens_per_s"], "step_ms": r["step_ms"],
+                 "mfu": r["mfu"], "loss": r["losses"][-1]}
+        if device.type == "cuda":
+            point["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        points.append(point)
+    first = points[0] if points else {}
+    return {"longctx": points, "longctx_seq": first.get("seq"),
+            "longctx_tokens_per_s": first.get("tokens_per_s"),
+            "longctx_mfu": first.get("mfu"), "longctx_loss": first.get("loss")}
+
+
 def bench_moe(name: str, dispatch: str, batch: int, seq: int, steps: int,
               peak_flops: float, device: torch.device) -> Dict[str, object]:
     """The reference's MoE phase: `name` in bf16 parameters, its dispatch
@@ -145,6 +202,8 @@ def main(argv=None) -> int:
     ap.add_argument("--peak-flops", type=float, default=H100_BF16_PEAK_FLOPS)
     ap.add_argument("--device", default=None,
                     help="torch device; the CUDA card when not given")
+    ap.add_argument("--no-longctx", action="store_true",
+                    help="skip the long-context sweep (as BENCH_LONGCTX=0)")
     ap.add_argument("--moe-model", default="mixtral-small", choices=sorted(MIXTRAL_CONFIGS))
     ap.add_argument("--moe-dispatch", default="auto", choices=("auto",) + DISPATCHES,
                     help="force an MoE dispatch; 'auto' runs the measured probe")
@@ -155,10 +214,14 @@ def main(argv=None) -> int:
     cfg = replace(CONFIGS[args.model], param_dtype=torch.bfloat16)
     r = bench_model(LlamaForCausalLM(cfg, device=device), args.batch, args.seq,
                     args.steps, args.peak_flops)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the Llama model and its optimizer are gone
+    longctx = {}
+    if not args.no_longctx and os.environ.get("BENCH_LONGCTX", "1") != "0":
+        seqs = [int(s) for s in os.environ.get("BENCH_LONGCTX_SEQS", LONGCTX_SEQS).split(",")]
+        longctx = longctx_sweep(cfg, args.steps, args.peak_flops, device, seqs)
     moe = {}
     if not args.no_moe:
-        if device.type == "cuda":
-            torch.cuda.empty_cache()  # the Llama model and its optimizer are gone
         moe = bench_moe(args.moe_model, args.moe_dispatch, args.batch, args.seq,
                         args.steps, args.peak_flops, device)
     card = card_description() if device.type == "cuda" else "cpu"
@@ -171,6 +234,7 @@ def main(argv=None) -> int:
         "mfu": r["mfu"],
         "peak_flops": args.peak_flops,
         "losses": r["losses"],
+        **longctx,
         **moe,
         "device": card,
     }), flush=True)

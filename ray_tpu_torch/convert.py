@@ -1,9 +1,10 @@
-"""Weights from the flax Llama and Mixtral (`ray_tpu.models.llama`,
-`ray_tpu.models.mixtral`) to the port.
+"""Weights from the flax Llama, Mixtral and GPT (`ray_tpu.models.llama`,
+`ray_tpu.models.mixtral`, `ray_tpu.models.gpt`) to the port.
 
 Takes the flax parameter tree as nested dicts of arrays (anything
 `numpy.asarray` reads) and returns a `state_dict` for
-`ray_tpu_torch.models.LlamaForCausalLM` or `MixtralForCausalLM`, in
+`ray_tpu_torch.models.LlamaForCausalLM`, `MixtralForCausalLM` or
+`GPTForCausalLM`, in
 float32; `load_state_dict` casts to the model's `param_dtype`.
 """
 from __future__ import annotations
@@ -81,4 +82,38 @@ def mixtral_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         out[pre + "router.weight"] = _tensor(moe["router"]["kernel"]).T.contiguous()
         for name in ("w_gate", "w_up", "w_down"):
             out[pre + name] = _tensor(moe[name])
+    return out
+
+
+def gpt_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax GPT layouts (`ray_tpu.models.gpt`) to the port's
+    (`ray_tpu_torch.models.GPTForCausalLM`):
+
+    - `wte/embedding` [V, H] and `wpe/embedding` [max_seq_len, H] stay;
+    - `h_{i}/c_attn/kernel` [H, 3, heads, hd] becomes [3 * heads * hd, H]
+      and its bias [3, heads, hd] becomes [3 * heads * hd], so the output
+      splits as (3, heads, hd) in the reference's order;
+    - `h_{i}/c_proj/kernel` [heads, hd, H] becomes [H, heads * hd];
+    - `h_{i}/c_fc/kernel` and `h_{i}/c_proj_mlp/kernel` [in, out] become
+      [out, in]; every other bias stays;
+    - `ln_1`, `ln_2`, `ln_f` `scale` and `bias` stay.
+    """
+    p = params.get("params", params)
+    out = {"wte.weight": _tensor(p["wte"]["embedding"]),
+           "wpe.weight": _tensor(p["wpe"]["embedding"])}
+    for norm in ("scale", "bias"):
+        out[f"ln_f.{norm}"] = _tensor(p["ln_f"][norm])
+    n_layers = sum(1 for name in p if name.startswith("h_"))
+    for i in range(n_layers):
+        block, pre = p[f"h_{i}"], f"h.{i}."
+        for name in ("ln_1", "ln_2"):
+            for norm in ("scale", "bias"):
+                out[f"{pre}{name}.{norm}"] = _tensor(block[name][norm])
+        for name in ("c_attn", "c_fc", "c_proj_mlp"):
+            kernel = _tensor(block[name]["kernel"])  # [in, ...out]
+            out[f"{pre}{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T.contiguous()
+            out[f"{pre}{name}.bias"] = _tensor(block[name]["bias"]).reshape(-1)
+        kernel = _tensor(block["c_proj"]["kernel"])  # [heads, hd, out]
+        out[pre + "c_proj.weight"] = kernel.reshape(-1, kernel.shape[-1]).T.contiguous()
+        out[pre + "c_proj.bias"] = _tensor(block["c_proj"]["bias"])
     return out

@@ -6,6 +6,8 @@ from .llama import (  # noqa: F401
     chunked_causal_lm_loss,
     lm_head_weight,
 )
+from .gpt import CONFIGS as GPT_CONFIGS  # noqa: F401
+from .gpt import GPTConfig, GPTForCausalLM  # noqa: F401
 from .mixtral import CONFIGS as MIXTRAL_CONFIGS  # noqa: F401
 from .mixtral import (  # noqa: F401
     MixtralConfig,

@@ -1,10 +1,13 @@
 """Where a train step's device time goes, from `torch.profiler`.
 
     python -m ray_tpu_torch.profile [--model mixtral-small]
-        [--moe-dispatch gmm] [--remat-policy dots]
+        [--moe-dispatch gmm] [--remat-policy dots] [--batch 2]
+        [--seq 2048] [--chunked-loss]
 
-Builds the model as `bench` does (bf16 parameters, batch 2, sequence 2048,
-AdamW), runs one warm-up step, times 3 steps, then profiles 3 more on the
+Builds the model as `bench` does (Llama and Mixtral in bf16 parameters,
+GPT in its config's float32 parameters; batch 2, sequence 2048, AdamW;
+`--chunked-loss` takes the long-context sweep's loss, for Llama),
+runs one warm-up step, times 3 steps, then profiles 3 more on the
 card. The profiler slows the host, so it prints the wall time
 per step with and without it, the device's busy share of the profiled wall
 time (the union of kernel intervals), the kernel time per step over the
@@ -25,11 +28,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from ._device import card_description, resolve_device
 from .bench import lm_loss, make_optimizer, train_step
-from .models.llama import CONFIGS, LlamaForCausalLM
+from .models.gpt import CONFIGS as GPT_CONFIGS
+from .models.gpt import GPTForCausalLM
+from .models.llama import CONFIGS, LlamaForCausalLM, chunked_causal_lm_loss
 from .models.mixtral import CONFIGS as MIXTRAL_CONFIGS
 from .models.mixtral import DISPATCHES, MixtralForCausalLM, moe_lm_loss
 
-BATCH, SEQ, STEPS, TOP = 2, 2048, 3, 30
+STEPS, TOP = 3, 30
 
 
 def busy_us(intervals) -> float:
@@ -45,25 +50,36 @@ def busy_us(intervals) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="mixtral-small",
-                    choices=sorted(CONFIGS) + sorted(MIXTRAL_CONFIGS))
+                    choices=sorted(CONFIGS) + sorted(MIXTRAL_CONFIGS) + sorted(GPT_CONFIGS))
     ap.add_argument("--moe-dispatch", default="gmm", choices=DISPATCHES)
     ap.add_argument("--remat-policy", default=None, choices=("dots", "nothing"),
                     help="override the config's remat policy")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--chunked-loss", action="store_true",
+                    help="Llama only: chunked_causal_lm_loss, as the long-context sweep")
     args = ap.parse_args(argv)
+    if args.chunked_loss and args.model not in CONFIGS:
+        ap.error("--chunked-loss applies to the Llama models only")
 
     device = resolve_device(None)  # the card: a CPU profile measures nothing of it
     if args.model in MIXTRAL_CONFIGS:
         cfg = replace(MIXTRAL_CONFIGS[args.model], param_dtype=torch.bfloat16,
                       moe_dispatch=args.moe_dispatch)
         model_cls, loss_fn = MixtralForCausalLM, moe_lm_loss
+    elif args.model in GPT_CONFIGS:
+        cfg, model_cls, loss_fn = GPT_CONFIGS[args.model], GPTForCausalLM, lm_loss
     else:
         cfg = replace(CONFIGS[args.model], param_dtype=torch.bfloat16)
-        model_cls, loss_fn = LlamaForCausalLM, lm_loss
+        model_cls = LlamaForCausalLM
+        loss_fn = chunked_causal_lm_loss if args.chunked_loss else lm_loss
     if args.remat_policy:
+        if args.model in GPT_CONFIGS:
+            ap.error("GPT has no remat policy (remat recomputes the whole block)")
         cfg = replace(cfg, remat_policy=args.remat_policy)
     model = model_cls(cfg, device=device)
     rng = np.random.RandomState(0)
-    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)),
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (args.batch, args.seq)),
                           dtype=torch.long, device=device)
     targets = torch.roll(ids, -1, dims=1)
     optimizer = make_optimizer(model)
@@ -93,12 +109,12 @@ def main(argv=None) -> int:
         per_kernel[evt.name][0] += end - start
         per_kernel[evt.name][1] += 1
     device_us = sum(us for us, _ in per_kernel.values())
-    print(f"{args.model} b{BATCH} s{SEQ} on {card_description()}: "
+    print(f"{args.model} b{args.batch} s{args.seq} on {card_description()}: "
           f"{plain_us / STEPS / 1e3:.3f} ms/step, {wall_us / STEPS / 1e3:.3f} ms/step "
           f"profiled, device busy {busy_us(intervals) / wall_us:.4f} of the profiled "
           f"steps, kernel time {device_us / STEPS / 1e3:.3f} ms/step = "
           f"{device_us / plain_us:.4f} of the unprofiled step")
-    print(f"remat {cfg.remat_policy}; ms/step  share  calls/step  kernel")
+    print(f"remat {getattr(cfg, 'remat_policy', 'nothing')}; ms/step  share  calls/step  kernel")
     for name, (us, calls) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
         print(f"{us / STEPS / 1e3:7.3f}  {us / device_us:5.3f}  {calls / STEPS:10.1f}  {name[:110]}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]

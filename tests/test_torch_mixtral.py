@@ -418,8 +418,12 @@ def test_model_without_device_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("moe", [True, False])
 def test_bench_main_runs_the_moe_phase_on_cpu(capsys, fresh_resolution, moe):
+    # The long-context sweep between the two phases has its own tests
+    # (test_torch_longctx.py); at its default 8-32k tokens the plain
+    # attention's float32 scores would not fit in the CPU's memory.
     args = ["--model", "llama-tiny", "--moe-model", "mixtral-tiny", "--device", "cpu",
-            "--batch", "1", "--seq", "32", "--steps", "1", "--moe-dispatch", "gmm"]
+            "--batch", "1", "--seq", "32", "--steps", "1", "--moe-dispatch", "gmm",
+            "--no-longctx"]
     assert bench.main(args + ([] if moe else ["--no-moe"])) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["device"] == "cpu" and np.isfinite(line["value"])
