@@ -63,7 +63,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    it (llama-1b, bf16 parameters, batch 1, T 8192, 16384 and 32768, 5
    timed steps each, chunked loss), with each point's peak memory; a
    later point may be recorded as out of memory; losses finite, and
-   K1-K3 launched as often as the points need.
+   K1-K3 launched as often as the points need;
+13. ring blocks in one process: K1 without the causal mask at the ring's
+   per-rank shape (16 heads of 128, T 8192), held and timed as in phase
+   10; then two blocks of one query shard (the diagonal, causal, and an
+   earlier one) merged as ring attention merges them, the merged o and
+   lse held against the plain attention over both blocks' keys, and K2
+   and K3 given that GLOBAL (o, lse) on each block held against their
+   plain versions on the same inputs;
+14. the ring over 4 ranks sharing the card (`parallel.launch.spawn`,
+   gloo, neighbour exchange through pinned host memory): each rank's
+   backend and card are printed; ring attention at llama-1b's attention
+   shape (b1, 16 heads of 128, T 32768 global) against single-card
+   `flash_attention` on the gathered tensors, o and every gradient; then
+   the sequence-parallel llama-1b train step (seq 4, b1, T 32768, bf16
+   parameters, chunked loss, one step then three timed): every loss
+   equals the same step's loss on one card from the same weights and
+   ids, every rank ends with the same parameters, the losses are finite
+   and fall, and K1-K3 were launched as often as the ring needs, summed
+   over the ranks (future blocks run no kernel). FSDP and
+   tensor parallelism do not run on one card, and the phase says so.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -124,6 +143,17 @@ GPT_ATTN = dict(bh=GPT_BATCH * 20, tq=GPT_SEQ, tk=GPT_SEQ, d=64, causal=True)
 GPT_LOGITS_REL = 2e-2
 # The bench's default --steps: the sweep times max(5, steps // 2) steps.
 LONGCTX_BENCH_STEPS = 10
+# Ring attention: 4 ranks share the card; llama-1b at batch 1, T 32768,
+# split into 4 shards of 8192 (16 heads of 128 each).
+RING_RANKS, RING_SEQ, RING_HEADS, RING_D = 4, 32768, 16, 128
+RING_TIMED_STEPS, RING_CHUNK = 3, 2048
+# Each sequence-parallel loss against the same step on one card: bf16
+# activations round at other points (the ring merges per-block o in
+# float32 and rounds once; the single kernel rounds its own o), and the
+# bf16 gradients are summed over the ranks in another order, which moves
+# only AdamW updates whose gradient is near zero (a first step is about
+# lr * sign(g)).
+RING_LOSS_RTOL = 1e-3
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -870,6 +900,173 @@ def phase_longctx(A, card, peak):
           f"MFU {out['longctx_mfu']:.4f}; launches {launches}", flush=True)
 
 
+def phase_ring_blocks(A):
+    """K1-K3 as the ring runs them on one rank: a block without the causal
+    mask at T 8192, held and timed as in phase 10;
+    then the diagonal block (causal) and an earlier block of the same
+    queries, merged as `ring_attention` merges them, against the plain
+    attention over both blocks' keys, and K2 + K3 on each block given the
+    merged (global) o and lse, against their plain versions on the same
+    inputs. The plain versions are held on HELD heads, where their float32
+    scores over both blocks fit beside the kernels' inputs."""
+    import torch
+
+    from ray_tpu_torch.ops.ring_attention import _merge
+
+    case, rand = attention_cases(A, seed=5)
+    bh, t, d, held = RING_HEADS, RING_SEQ // RING_RANKS, RING_D, 4
+    case(bh, t, t, d, False, timed=True)
+    torch.cuda.empty_cache()
+
+    q, do = rand(bh, t, d), rand(bh, t, d)
+    (k_diag, v_diag), (k_prev, v_prev) = (rand(bh, t, d), rand(bh, t, d)), \
+        (rand(bh, t, d), rand(bh, t, d))
+    scale = 1.0 / math.sqrt(d)
+    o_d, lse_d = A._flash_fwd_cuda(q, k_diag, v_diag, causal=True, sm_scale=scale)
+    o_p, lse_p = A._flash_fwd_cuda(q, k_prev, v_prev, causal=False, sm_scale=scale)
+    o, lse = _merge(o_d, lse_d, o_p, lse_p)
+    o = o.to(q.dtype)
+    # The plain attention over [earlier block, diagonal block]: the
+    # end-aligned causal mask lets each query see the whole earlier block
+    # and the diagonal block up to itself.
+    f = [x[:held].float() for x in (q, k_prev, k_diag, v_prev, v_diag, do)]
+    qf, kpf, kdf, vpf, vdf, dof = f
+    o_ref, lse_ref = A._flash_fwd_plain(qf, torch.cat([kpf, kdf], 1), torch.cat([vpf, vdf], 1),
+                                        causal=True, sm_scale=scale)
+    errs = [assert_close("ring merge o", o[:held], o_ref, O_TOL, O_TOL, REL_TOL),
+            assert_close("ring merge lse", lse[:held], lse_ref, LSE_ATOL, 0.0)]
+    # K2 and K3 take the plain merged lse and delta on the held heads
+    # (the merged kernels' elsewhere), so each block is held on identical
+    # inputs; over a block a row's p sums to less than 1.
+    delta_ref = (dof * o_ref).sum(-1)
+    lse_in = torch.cat([lse_ref, lse[held:]])
+    delta = torch.cat([delta_ref, (do[held:].float() * o[held:].float()).sum(-1)])
+    blocks = (("diagonal", k_diag, v_diag, kdf, vdf, True),
+              ("earlier", k_prev, v_prev, kpf, vpf, False))
+    for name, k, v, kf, vf, causal in blocks:
+        kw = dict(causal=causal, sm_scale=scale)
+        dk, dv = A._flash_bwd_dkv_cuda(q, k, v, do, lse_in, delta, **kw)
+        dq = A._flash_bwd_dq_cuda(q, k, v, do, lse_in, delta, **kw)
+        dk_p, dv_p = A._flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta_ref, **kw)
+        dq_p = A._flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta_ref, **kw)
+        torch.cuda.synchronize()
+        errs += [assert_close(f"ring {name} block K2 dk", dk[:held], dk_p, GRAD_TOL, GRAD_TOL,
+                              REL_TOL),
+                 assert_close(f"ring {name} block K2 dv", dv[:held], dv_p, GRAD_TOL, GRAD_TOL,
+                              REL_TOL),
+                 assert_close(f"ring {name} block K3 dq", dq[:held], dq_p, GRAD_TOL, GRAD_TOL,
+                              REL_TOL)]
+        del dk, dv, dq, dk_p, dv_p, dq_p
+    print(f"ring blocks [bh{bh} t{t} d{d}, two blocks merged, held on {held} heads]: merged o "
+          f"and lse against the plain attention over both blocks, K2 and K3 given the "
+          f"global (o, lse) on each block: {fmt(worst(*errs))}; limit rel {REL_TOL}: ok",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_ring(A, card):
+    """Ring attention and the sequence-parallel llama-1b step over
+    RING_RANKS processes sharing the card, through `parallel.launch`."""
+    import functools
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM, chunked_causal_lm_loss
+    from ray_tpu_torch.parallel.launch import ring_inputs, run_llama_train, run_ring, spawn
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import make_optimizer, timed_steps, train_step
+
+    n, t, h, d = RING_RANKS, RING_SEQ, RING_HEADS, RING_D
+    spec = MeshSpec(seq=n)
+    # (a) ring attention against single-card flash_attention on the same tensors
+    inputs = (6, 1, h, h, t, d)
+    q, k, v, do = (torch.from_numpy(x).to("cuda", torch.bfloat16) for x in ring_inputs(*inputs))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = A.flash_attention(*leaves, causal=True)
+    o.backward(do)
+    want = {name: x.detach().cpu() for name, x in
+            zip(("o", "dq", "dk", "dv"), (o, *(x.grad for x in leaves)))}
+    del q, k, v, do, leaves, o
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(run_ring, n, spec, [dict(inputs=inputs, causal=True, dtype="bfloat16")],
+                deadline_s=300)
+    seconds = time.perf_counter() - t0
+    parts = sorted((r[0] for r in res), key=lambda r: r["seq_rank"])
+    for r in parts:
+        print(f"ring rank {r['seq_rank']}: backend {r['backend']}, {r['device']} "
+              f"({r['card']}); launches {r['launches']}", flush=True)
+    errs = []
+    for name in ("o", "dq", "dk", "dv"):
+        got = torch.cat([r[name] for r in parts], dim=2).float()
+        tol = O_TOL if name == "o" else GRAD_TOL
+        errs.append(assert_close(f"ring {name} vs single-card", got, want[name].float(), tol, tol,
+                                 REL_TOL))
+    launches = {name: sum(r["launches"][name] for r in parts) for name in A.LAUNCHES}
+    blocks = n * (n + 1) // 2  # rank r runs r + 1 blocks
+    check(launches == {"flash_fwd": blocks, "flash_bwd_dkv": blocks, "flash_bwd_dq": blocks},
+          f"ring launches {launches}, expected {blocks} of each")
+    print(f"ring attention [{n} ranks on one card, b1 h{h} T {t} (shards of {t // n}) d{d} "
+          f"bf16 causal]: o, dq, dk, dv against single-card flash_attention {fmt(worst(*errs))}; "
+          f"limit rel {REL_TOL}; launches over the ranks {launches}; world of {n} "
+          f"processes in {seconds:.1f} s: ok", flush=True)
+    del want
+
+    # (b) the sequence-parallel llama-1b train steps against the same
+    # steps on one card, from the same weights and ids
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, t))
+    loss_fn = functools.partial(chunked_causal_lm_loss, chunk_size=RING_CHUNK)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    optimizer = make_optimizer(model)
+    ids_c = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    targets_c = torch.roll(ids_c, -1, 1)
+    single, single_s = timed_steps(
+        lambda: train_step(model, optimizer, ids_c, targets_c, loss_fn), RING_TIMED_STEPS)
+    del model, optimizer, ids_c, targets_c
+    torch.cuda.empty_cache()
+    res = spawn(run_llama_train, n, spec, cfg, ids, RING_TIMED_STEPS, loss_fn, deadline_s=600)
+    losses = res[0]["losses"]
+    digests = [r["param_digest"] for r in res]
+    check(all(x == digests[0] for x in digests),
+          f"ranks hold different parameters after the steps: digests {digests}")
+    check(all(math.isfinite(x) for x in losses), f"sequence-parallel loss not finite: {losses}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+    check(max(loss_rel) <= RING_LOSS_RTOL,
+          f"sequence-parallel losses {losses} vs single-card {single}: relative "
+          f"{loss_rel} (rtol {RING_LOSS_RTOL})")
+    check(losses[-1] < losses[0], f"sequence-parallel loss did not fall: {losses}")
+    launches = {name: sum(r["launches"][name] for r in res) for name in A.LAUNCHES}
+    steps, layers = RING_TIMED_STEPS + 1, cfg.num_layers
+    # remat "nothing": each layer's ring forward runs twice (forward and
+    # recompute), its backward once; each pass launches `blocks` kernels
+    # over the ranks.
+    per_step = {"flash_fwd": 2 * layers * blocks, "flash_bwd_dkv": layers * blocks,
+                "flash_bwd_dq": layers * blocks}
+    for name, k in per_step.items():
+        check(launches[name] == k * steps,
+              f"sequence-parallel step: {name} launched {launches[name]} times over the ranks "
+              f"in {steps} steps, expected {k * steps}")
+    step_ms = max(r["step_ms"] for r in res)
+    for r in sorted(res, key=lambda r: r["seq_rank"]):
+        print(f"seq-parallel rank {r['seq_rank']}: backend {r['backend']}, {r['device']} "
+              f"({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
+              f"{r['peak_memory_gb']:.2f} GB", flush=True)
+    print(f"train llama-1b seq-parallel (seq {n}, b1, T {t}, bf16, chunked loss) on {card}, "
+          f"{n} ranks sharing the card over gloo through host memory: losses "
+          f"{losses} against single-card {single} (relative {max(loss_rel):.2e}, rtol "
+          f"{RING_LOSS_RTOL}), parameters equal on every rank, step {step_ms:.1f} ms "
+          f"(slowest rank; one card alone {single_s / RING_TIMED_STEPS * 1e3:.1f} ms), "
+          f"{t / step_ms * 1e3:.1f} "
+          f"tokens/s, launches over the ranks {launches} ({per_step} per step): ok; not a "
+          f"measure of scaling (one card, host-staged exchange)", flush=True)
+    print("FSDP and tensor parallelism (parallel.mesh.shard_params) are not run: on one card "
+          "gloo has no all-gather or reduce-scatter of CUDA tensors and NCCL refuses two "
+          "ranks on a card; they run in the CPU tests over gloo", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -968,6 +1165,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 12. the long-context sweep, counted from zero
     phase_longctx(A, card, H100_BF16_PEAK_FLOPS)
+    torch.cuda.empty_cache()
+    # 13. ring blocks in one process
+    phase_ring_blocks(A)
+    # 14. the ring over RING_RANKS processes on the card, counted in each rank
+    phase_ring(A, card)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.

@@ -5,7 +5,10 @@ imports nothing of it. Slice 1 is the Llama training step: `models.llama`
 on the flash-attention kernels of `ops.attention`. Slice 2 is the
 Mixtral sparse-MoE training step: `models.mixtral` on the grouped-matmul
 kernels of `ops.gmm`. Slice 6 adds GPT (`models.gpt`), on the same
-attention kernels as Llama. `bench` (`python -m ray_tpu_torch.bench`)
+attention kernels as Llama. Slice 7 adds the device mesh and its train
+steps on torch.distributed (`parallel`) and ring attention over a
+sequence-sharded group (`ops.ring_attention`), each block on the same
+kernels. `bench` (`python -m ray_tpu_torch.bench`)
 drives Llama, its long-context sweep and Mixtral; `profile` breaks a
 step's device time down by kernel.
 """

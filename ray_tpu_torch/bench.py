@@ -21,10 +21,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 import traceback
 from dataclasses import replace
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +33,6 @@ from .models.llama import (
     CONFIGS,
     LlamaConfig,
     LlamaForCausalLM,
-    causal_lm_loss,
     chunked_causal_lm_loss,
 )
 from .models.mixtral import CONFIGS as MIXTRAL_CONFIGS
@@ -45,6 +43,7 @@ from .models.mixtral import (
     moe_lm_loss,
     resolve_moe_dispatch,
 )
+from .train import LossFn, lm_loss, make_optimizer, timed_steps, train_step
 
 # Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet).
 H100_BF16_PEAK_FLOPS = 989e12
@@ -55,31 +54,6 @@ def flops_per_token(n_params: float, cfg, seq_len: int) -> float:
     """6N matmul flops/token + attention score flops
     (12 * L * T * hidden per token, fwd+bwd)."""
     return 6.0 * n_params + 12.0 * cfg.num_layers * seq_len * cfg.hidden_size
-
-
-def make_optimizer(model: torch.nn.Module) -> torch.optim.AdamW:
-    """AdamW as the reference's `optax.adamw(3e-4, b1=0.9, b2=0.95)`:
-    optax decays every leaf by 1e-4 (torch's default is 1e-2). With bf16
-    parameters both moments are bf16, as `mu_dtype=bfloat16` gives."""
-    return torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.95),
-                             eps=1e-8, weight_decay=1e-4)
-
-
-def lm_loss(model, ids, targets):
-    return causal_lm_loss(model(ids), targets)
-
-
-LossFn = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def train_step(model, optimizer, ids, targets, loss_fn: LossFn = lm_loss):
-    """One forward, loss, backward and update; returns the loss (on the
-    device, not synchronised)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model, ids, targets)
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
 
 
 def bench_model(model: torch.nn.Module, batch: int, seq: int, steps: int,
@@ -102,14 +76,7 @@ def bench_model(model: torch.nn.Module, batch: int, seq: int, steps: int,
                           dtype=torch.long, device=device)
     targets = torch.roll(ids, -1, dims=1)
     optimizer = make_optimizer(model)
-
-    losses: List[torch.Tensor] = [train_step(model, optimizer, ids, targets, loss_fn)]
-    float(losses[0])  # waits for the warm-up step
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        losses.append(train_step(model, optimizer, ids, targets, loss_fn))
-    float(losses[-1])  # waits for the last step
-    dt = time.perf_counter() - t0
+    losses, dt = timed_steps(lambda: train_step(model, optimizer, ids, targets, loss_fn), steps)
 
     tok_per_s = batch * seq * steps / dt
     mfu = tok_per_s * flops_per_token(n_params, cfg, seq) / peak_flops
@@ -117,7 +84,7 @@ def bench_model(model: torch.nn.Module, batch: int, seq: int, steps: int,
         "tokens_per_s": tok_per_s,
         "step_ms": dt / steps * 1e3,
         "mfu": mfu,
-        "losses": [float(x) for x in losses],
+        "losses": losses,
     }
 
 

@@ -8,9 +8,14 @@ and cast to `dtype` at each use, as flax's `dtype=` does (the embedding
 table and both operands of every projection); norms and rotary angles are
 computed in float32; the untied LM head computes in float32.
 
-This slice is single-device. The reference's mesh-only branches (the
-one-hot embedding lookup and ring attention) come with the mesh slice;
-its sharding constraints are no-ops without a mesh and are dropped.
+With a `mesh` (a `DeviceMesh` from `parallel.mesh.MeshSpec.build`) whose
+`seq` axis is larger than 1, each rank holds a contiguous shard of the
+sequence: attention runs `ring_self_attention` over the `seq` group, and
+positions default to the shard's global ones. The reference's one-hot
+embedding lookup on a mesh (`llama.py:210-222`) gives exactly the gather's
+values (a one-hot row times the table), so the port keeps the gather. Its
+sharding constraints are GSPMD hints with no counterpart here: tensor and
+data parallelism come from `parallel.mesh.shard_params`.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from torch.utils.checkpoint import (
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
+from ..ops.ring_attention import ring_self_attention
 
 
 @dataclass(frozen=True)
@@ -132,25 +138,35 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-class Dense(nn.Module):
+class Dense(nn.Linear):
     """y = x W^T with input and weight cast to `dtype` (flax's
-    `Dense(dtype=...)`); the weight is stored [out, in] in `param_dtype`."""
+    `Dense(dtype=...)`); the weight is stored [out, in] in `param_dtype`,
+    no bias. An `nn.Linear`, so that tensor parallelism's
+    `ColwiseParallel` and `RowwiseParallel` take it; `nn.Linear`'s own
+    initialisation is skipped (`init_parameters` sets the weight)."""
 
     def __init__(self, in_features, out_features, dtype, param_dtype, device):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
         self.dtype = dtype
         self.weight = _param((out_features, in_features), param_dtype, device)
+        self.register_parameter("bias", None)
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
-class Embed(nn.Module):
+class Embed(nn.Embedding):
     """Token lookup; the table [V, H] is stored in `param_dtype` and the
-    rows come out in `dtype` (flax casts the table before the gather)."""
+    rows come out in `dtype` (flax casts the table before the gather). An
+    `nn.Embedding`, so that tensor parallelism can shard the vocabulary;
+    `nn.Embedding`'s own initialisation is skipped."""
 
     def __init__(self, num_embeddings, features, dtype, param_dtype, device):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.num_embeddings, self.embedding_dim = num_embeddings, features
+        self.padding_idx, self.max_norm, self.norm_type = None, None, 2.0
+        self.scale_grad_by_freq, self.sparse = False, False
         self.dtype = dtype
         self.weight = _param((num_embeddings, features), param_dtype, device)
 
@@ -170,10 +186,15 @@ class RMSNorm(nn.Module):
         return (norm * self.scale.float()).to(x.dtype)
 
 
+def _uses_ring(mesh) -> bool:
+    return mesh is not None and mesh["seq"].size() > 1
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.ring_mesh = mesh if _uses_ring(mesh) else None
         hd, h = cfg.head_dim_, cfg.hidden_size
         dense = functools.partial(Dense, dtype=cfg.dtype,
                                   param_dtype=cfg.param_dtype, device=device)
@@ -186,14 +207,18 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim_
-        # [B, T, H*D] -> [B, H, T, D]
-        q = self.q_proj(x).view(b, t, cfg.num_heads, hd).transpose(1, 2)
-        k = self.k_proj(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
-        v = self.v_proj(x).view(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
+        # [B, T, H*D] -> [B, H, T, D]; under tensor parallelism the rank's
+        # projections hold only its share of the heads.
+        q = self.q_proj(x).view(b, t, -1, hd).transpose(1, 2)
+        k = self.k_proj(x).view(b, t, -1, hd).transpose(1, 2)
+        v = self.v_proj(x).view(b, t, -1, hd).transpose(1, 2)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        o = flash_attention(q, k, v, causal=True)
-        return self.o_proj(o.transpose(1, 2).reshape(b, t, cfg.num_heads * hd))
+        if self.ring_mesh is not None:
+            o = ring_self_attention(q, k, v, self.ring_mesh, causal=True)
+        else:
+            o = flash_attention(q, k, v, causal=True)
+        return self.o_proj(o.transpose(1, 2).reshape(b, t, -1))
 
 
 class MLP(nn.Module):
@@ -210,12 +235,12 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, mesh=None):
         super().__init__()
         norm = functools.partial(RMSNorm, cfg.hidden_size, cfg.rms_eps,
                                  cfg.param_dtype, device)
         self.input_norm = norm()
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, mesh)
         self.post_attn_norm = norm()
         self.mlp = MLP(cfg, device)
 
@@ -241,17 +266,24 @@ class LlamaForCausalLM(nn.Module):
     unless the caller passes one) from `generator`, seed 0 by default:
     normal with std 1/sqrt(fan_in) for projections and the LM head,
     1/sqrt(hidden) for the embedding, ones for norm scales, as flax's
-    default initializers scale them."""
+    default initializers scale them. Every rank of a `mesh` draws the same
+    weights from the same generator.
 
-    def __init__(self, cfg: LlamaConfig, *, device: DeviceLike = None,
+    With a `mesh` whose `seq` axis is larger than 1, `forward` takes this
+    rank's contiguous shard of the sequence (`parallel.step.shard_batch`)
+    and attention runs over the ring."""
+
+    def __init__(self, cfg: LlamaConfig, mesh=None, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        # This rank's shard of the sequence, in order (0 without a ring).
+        self.seq_rank = mesh["seq"].get_local_rank() if _uses_ring(mesh) else 0
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype,
                                   cfg.param_dtype, device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.num_layers)
+            DecoderLayer(cfg, device, mesh) for _ in range(cfg.num_layers)
         )
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps,
                                   cfg.param_dtype, device)
@@ -269,11 +301,14 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, positions=None, return_hidden=False):
         """Logits [B, T, V], or with `return_hidden=True` the final-norm
         hidden states, so a chunked loss can apply the LM head per
-        sequence chunk and the full logits never exist."""
+        sequence chunk and the full logits never exist. On a sequence
+        shard, positions default to the shard's global ones, which the
+        rotary embeddings must see."""
         cfg = self.cfg
         if positions is None:
+            t = input_ids.shape[1]
             positions = torch.arange(
-                input_ids.shape[1], device=input_ids.device
+                self.seq_rank * t, (self.seq_rank + 1) * t, device=input_ids.device
             ).expand(input_ids.shape)
         x = self.embed_tokens(input_ids)
         for layer in self.layers:

@@ -9,13 +9,21 @@ and an unchanged one is loaded as it is. Libraries go to
 spill report `ptxas -v` printed for it (`ptxas_report`). A failed build
 raises: there is no retry and no fallback.
 
+Several processes may build at once (the ranks of a world on one card):
+a build holds an exclusive `flock` on `_build/.lock` and looks again for
+each library once it has the lock, so one process compiles and the
+others load what it wrote. A library and its report each appear by an
+atomic rename, never half-written.
+
 The helpers below call a kernel's C entry point, which launches on
 PyTorch's current stream and returns a `cudaError_t`; `launch` raises if
 it is not 0.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,33 +70,59 @@ def _library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _built(lib: Path) -> bool:
+    return lib.exists() and _report_path(lib).exists()
+
+
+@contextlib.contextmanager
+def _build_dir_lock():
+    """An exclusive lock on the build directory across processes, released
+    by the kernel if its holder dies."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(todo: Dict[Path, Path]) -> None:
+    """Compiles each source of `todo` (source -> library) not yet built by
+    another process; call with the build directory locked."""
+    pending = []
+    for src, lib in todo.items():
+        if _built(lib):
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+               "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending.append((src, lib, tmp, proc))
+    failures = []
+    for src, lib, tmp, proc in pending:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{src.name}:\n{out}")
+        else:
+            report = _report_path(lib)
+            report.with_suffix(f".tmp{os.getpid()}").write_text(out)
+            os.replace(report.with_suffix(f".tmp{os.getpid()}"), report)
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+
+
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile every source not yet built (in parallel), load all of
     them, and return the libraries by source name."""
     with _lock:
         sources = sorted(CSRC.glob("*.cu"))
         todo = {s: _library_path(s) for s in sources if s.stem not in _libs}
-        pending = []
-        for src, lib in todo.items():
-            if lib.exists() and _report_path(lib).exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".tmp{os.getpid()}")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
-                   "-o", str(tmp), str(src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            pending.append((src, lib, tmp, proc))
-        failures = []
-        for src, lib, tmp, proc in pending:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"{src.name}:\n{out}")
-            else:
-                _report_path(lib).write_text(out)
-                os.replace(tmp, lib)
-        if failures:
-            raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        if not all(_built(lib) for lib in todo.values()):
+            with _build_dir_lock():
+                _compile(todo)
         for src, lib in todo.items():
             _libs[src.stem] = ctypes.CDLL(str(lib))
         return dict(_libs)

@@ -27,12 +27,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ._device import card_description, resolve_device
-from .bench import lm_loss, make_optimizer, train_step
 from .models.gpt import CONFIGS as GPT_CONFIGS
 from .models.gpt import GPTForCausalLM
 from .models.llama import CONFIGS, LlamaForCausalLM, chunked_causal_lm_loss
 from .models.mixtral import CONFIGS as MIXTRAL_CONFIGS
 from .models.mixtral import DISPATCHES, MixtralForCausalLM, moe_lm_loss
+from .train import lm_loss, make_optimizer, train_step
 
 STEPS, TOP = 3, 30
 
