@@ -82,7 +82,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ids, every rank ends with the same parameters, the losses are finite
    and fall, and K1-K3 were launched as often as the ring needs, summed
    over the ranks (future blocks run no kernel). FSDP and
-   tensor parallelism do not run on one card, and the phase says so.
+   tensor parallelism do not run on one card, and the phase says so;
+15. the pipeline over 2 ranks sharing the card (`parallel.pipeline`,
+   gloo, activations and their gradients through pinned host memory):
+   llama-1b's 22 decoder layers at full width as 2 stages of 11, 4
+   microbatches of b1 s2048, bf16 parameters, x the seed-0 embedding of
+   `RandomState(0)` ids; one pipelined forward and backward of mean(y^2)
+   against `sequential_reference` on the card with the same layers (y and
+   every stage's gradients, normwise per 64-row tile), then three timed
+   SGD steps: every loss finite and equal to the same steps on one card,
+   the loss falling, and K1-K3 launched on each rank as often as its stage's microbatches
+   need (bubble ticks run no stage); the step of the slowest rank, the
+   peak memory per rank and the bubble share (S - 1) / (M + S - 1);
+16. expert parallelism over 4 ranks sharing the card (data 2 x expert 2,
+   4 experts a rank): mixtral-small at full width and depth, b2 s2048
+   (one row a data replica), bf16 parameters, remat "dots", "capacity"
+   forced by the mesh, `moe_lm_loss` with AdamW; one step and three
+   timed: every loss equal to the same steps on one card with
+   "capacity", the ranks of a data pair holding equal parameters and the
+   parameters that are not experts equal on all four, losses finite and
+   falling, K1-K3 launched as often as the model needs, summed over the
+   ranks; each rank's backend and card, the slowest rank's step and the
+   peak memory per rank. The dense four-axis dryrun
+   (`ray_tpu_torch.dryrun`) does not run on one card, and the phase says
+   so.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -154,6 +177,14 @@ RING_TIMED_STEPS, RING_CHUNK = 3, 2048
 # only AdamW updates whose gradient is near zero (a first step is about
 # lr * sign(g)).
 RING_LOSS_RTOL = 1e-3
+# The pipeline: llama-1b's 22 layers as 2 stages of 11 on 2 ranks sharing
+# the card, 4 microbatches of b1 s2048, SGD on mean(y^2) (the reference
+# dryrun's loss and step). The dryrun's rate of 0.1 makes this loss rise
+# on llama-1b's layers; at 1e-3 it falls.
+PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_LR = 2, 11, 4, 1e-3
+# Expert parallelism: mixtral-small on data 2 x expert 2, 4 ranks sharing
+# the card.
+EXPERT_DATA, EXPERT_EP = 2, 2
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -1067,6 +1098,151 @@ def phase_ring(A, card):
           "ranks on a card; they run in the CPU tests over gloo", flush=True)
 
 
+def _grad_rows(g):
+    """A gradient as rows for `rel_errs`: [out, in] weights by output row
+    (tiles of TILE), a vector as one row (tile 1)."""
+    return (g.reshape(-1, g.shape[-1]), TILE) if g.dim() > 1 else (g.reshape(1, -1), 1)
+
+
+def phase_pipeline(A, card):
+    """llama-1b's decoder layers as a pipeline of PIPE_STAGES ranks sharing
+    the card, against the same layers in sequence on one card."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.parallel.launch import run_pipeline_llama, sequential_llama, spawn
+
+    s_count, layers, m_count = PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    check(s_count * layers == cfg.num_layers, "the pipeline must hold every layer")
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (m_count, 1, SEQ))
+    want = sequential_llama(cfg, s_count, layers, ids, TIMED_STEPS, PIPE_LR, device="cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sorted(spawn(run_pipeline_llama, s_count, cfg, layers, ids, TIMED_STEPS, PIPE_LR,
+                       deadline_s=600), key=lambda r: r["stage"])
+    seconds = time.perf_counter() - t0
+    errs = []
+    for r in res:
+        errs.append(assert_close(f"pipeline y (stage {r['stage']}) vs sequential",
+                                 r["y"].float(), want["y"].float(), O_TOL, O_TOL, REL_TOL))
+        grads = want["grads"][r["stage"]]
+        check(set(r["grads"]) == set(grads), f"stage {r['stage']}: other parameters")
+        for name, w in grads.items():
+            (got, tile), (ref, _) = _grad_rows(r["grads"][name].float()), _grad_rows(w.float())
+            errs.append(assert_close(f"pipeline grad {name} (stage {r['stage']})", got, ref,
+                                     GRAD_TOL * float(ref.abs().max()), GRAD_TOL, REL_TOL,
+                                     tile=tile))
+    steps = TIMED_STEPS + 1
+    for r in res:
+        losses = r["losses"]
+        check(all(math.isfinite(x) for x in losses), f"pipeline loss not finite: {losses}")
+        check(losses[-1] < losses[0], f"pipeline loss did not fall: {losses}")
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+        check(max(loss_rel) <= RING_LOSS_RTOL,
+              f"pipeline losses {losses} vs sequential {want['losses']}: relative {loss_rel} "
+              f"(rtol {RING_LOSS_RTOL})")
+        # Each rank runs its 11 layers on the M microbatches of its own
+        # ticks only: K1 in the forward and again in remat "nothing"'s
+        # recompute inside the backward's VJP, K2 and K3 once.
+        per_step = {"flash_fwd": 2 * m_count * layers, "flash_bwd_dkv": m_count * layers,
+                    "flash_bwd_dq": m_count * layers}
+        for name, k in per_step.items():
+            check(r["launches"][name] == k * steps,
+                  f"pipeline stage {r['stage']}: {name} launched {r['launches'][name]} times "
+                  f"in {steps} steps, expected {k * steps}")
+        print(f"pipeline stage {r['stage']}: backend {r['backend']}, {r['device']} "
+              f"({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
+              f"{r['peak_memory_gb']:.2f} GB, launches {r['launches']}", flush=True)
+    step_ms = max(r["step_ms"] for r in res)
+    print(f"pipeline llama-1b (22 layers as {s_count} stages of {layers}, {m_count} "
+          f"microbatches of b1 s{SEQ}, bf16, SGD {PIPE_LR} on mean(y^2)) on {card}, "
+          f"{s_count} ranks sharing the card over gloo through host memory: y and "
+          f"{sum(len(g) for g in want['grads'])} grads against the layers in sequence "
+          f"{fmt(worst(*errs))}, limit rel {REL_TOL}; losses {res[0]['losses']} against "
+          f"{want['losses']} (rtol {RING_LOSS_RTOL}); step {step_ms:.1f} ms (slowest rank; "
+          f"one card in sequence {want['step_ms']:.1f} ms), peak memory per rank "
+          f"{[round(r['peak_memory_gb'], 2) for r in res]} GB; bubble share "
+          f"(S-1)/(M+S-1) = {(s_count - 1) / (m_count + s_count - 1):.2f} (the schedule's, "
+          f"not measured); launches per rank {per_step} per step; world in {seconds:.1f} s: "
+          f"ok; not a measure of scaling (one card, host-staged exchange)", flush=True)
+
+
+def phase_expert(A, card):
+    """mixtral-small on data x expert over ranks sharing the card, against
+    the same steps on one card with "capacity"."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.mixtral import CONFIGS, MixtralForCausalLM, moe_lm_loss
+    from ray_tpu_torch.parallel.launch import run_mixtral_train, spawn
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import make_optimizer, timed_steps, train_step
+
+    spec = MeshSpec(data=EXPERT_DATA, expert=EXPERT_EP)
+    cfg = replace(CONFIGS["mixtral-small"], param_dtype=torch.bfloat16)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (BATCH, SEQ))
+    model = MixtralForCausalLM(replace(cfg, moe_dispatch="capacity"), device="cuda")
+    optimizer = make_optimizer(model)
+    ids_c = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    targets_c = torch.roll(ids_c, -1, 1)
+    single, single_s = timed_steps(
+        lambda: train_step(model, optimizer, ids_c, targets_c, moe_lm_loss), TIMED_STEPS)
+    del model, optimizer, ids_c, targets_c
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(run_mixtral_train, spec.num_devices, spec, cfg, ids, TIMED_STEPS,
+                deadline_s=900)
+    seconds = time.perf_counter() - t0
+    losses = res[0]["losses"]
+    check(all(r["losses"] == losses for r in res), "ranks report different losses")
+    check(all(math.isfinite(x) for x in losses), f"expert-parallel loss not finite: {losses}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+    check(max(loss_rel) <= RING_LOSS_RTOL,
+          f"expert-parallel losses {losses} vs single-card {single}: relative {loss_rel} "
+          f"(rtol {RING_LOSS_RTOL})")
+    check(losses[-1] < losses[0], f"expert-parallel loss did not fall: {losses}")
+    for r in res:
+        pair = [p["param_digest"] for p in res if p["expert_rank"] == r["expert_rank"]]
+        check(all(d == r["param_digest"] for d in pair),
+              f"the ranks of expert {r['expert_rank']}'s data pair differ: {pair}")
+        check(r["replicated_digest"] == res[0]["replicated_digest"],
+              "the parameters that are not experts differ between ranks")
+    launches = {name: sum(r["launches"][name] for r in res) for name in A.LAUNCHES}
+    steps, layers = TIMED_STEPS + 1, cfg.num_layers
+    # Each rank runs every layer's attention on its data replica's row:
+    # under remat "dots" K1 in the forward and again in the recompute, K2
+    # and K3 once.
+    ranks = spec.num_devices
+    per_step = {"flash_fwd": 2 * layers * ranks, "flash_bwd_dkv": layers * ranks,
+                "flash_bwd_dq": layers * ranks}
+    for name, k in per_step.items():
+        check(launches[name] == k * steps,
+              f"expert-parallel step: {name} launched {launches[name]} times over the ranks "
+              f"in {steps} steps, expected {k * steps}")
+    step_ms = max(r["step_ms"] for r in res)
+    for r in sorted(res, key=lambda r: (r["data_rank"], r["expert_rank"])):
+        print(f"expert rank {r['expert_rank']} of data replica {r['data_rank']}: backend "
+              f"{r['backend']}, {r['device']} ({r['card']}), step {r['step_ms']:.1f} ms, peak "
+              f"memory {r['peak_memory_gb']:.2f} GB", flush=True)
+    print(f"train mixtral-small expert-parallel (data {EXPERT_DATA} x expert {EXPERT_EP}, "
+          f"{cfg.num_experts // EXPERT_EP} experts a rank, b{BATCH} s{SEQ}, bf16, remat dots, "
+          f"capacity) on {card}, {ranks} ranks sharing the card over gloo through host "
+          f"memory: losses {losses} against single-card capacity {single} (relative "
+          f"{max(loss_rel):.2e}, rtol {RING_LOSS_RTOL}), data pairs equal, replicated "
+          f"parameters equal on every rank, step {step_ms:.1f} ms (slowest rank; one card "
+          f"alone {single_s / TIMED_STEPS * 1e3:.1f} ms), launches over the ranks {launches} "
+          f"({per_step} per step); world in {seconds:.1f} s: ok; not a measure of scaling "
+          f"(one card, host-staged exchange)", flush=True)
+    print("the dense four-axis dryrun (ray_tpu_torch.dryrun: data x fsdp x seq x tensor) and "
+          "dryrun_multichip are not run: on one card gloo has no all-gather or reduce-scatter "
+          "of CUDA tensors and NCCL refuses two ranks on a card; both run in the CPU tests "
+          "over gloo", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1170,6 +1346,12 @@ def main() -> int:
     phase_ring_blocks(A)
     # 14. the ring over RING_RANKS processes on the card, counted in each rank
     phase_ring(A, card)
+    torch.cuda.empty_cache()
+    # 15. the pipeline over PIPE_STAGES processes, counted in each rank
+    phase_pipeline(A, card)
+    torch.cuda.empty_cache()
+    # 16. expert parallelism over data x expert processes, counted in each rank
+    phase_expert(A, card)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.

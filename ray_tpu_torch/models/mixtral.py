@@ -23,13 +23,29 @@ Three dispatch backends (`MixtralConfig.moe_dispatch`):
 
 The router's load-balancing loss is returned by each layer and collected by
 the model (the flax model sows it), so a checkpointed layer's recompute
-changes no state. The mesh-only branches (expert parallelism and its forced
-"capacity") come with the mesh slice.
+changes no state.
+
+With a `mesh` (`parallel.mesh.MeshSpec.build`), rows split over ("data",
+"fsdp") and the sequence over "seq" (the ring, as in Llama); the router's
+batch statistics are summed over those axes, so the load-balancing loss is
+the global batch's, as under the reference's GSPMD. An `expert` axis of
+size ep splits the experts: rank e holds experts [e E/ep, (e+1) E/ep) of
+every layer, drawn with all the others from the same seed, so the weights
+are the single-device model's. The dispatch is then "capacity" (the
+reference forces it there, `resolve_moe_dispatch`); an explicit "gmm" or
+"ragged" raises. The ranks of an expert group see the same rows. Each
+routes all of them, runs the capacity einsums on its own experts and
+combines only their pairs; the partial outputs are summed over the group
+(`parallel.collectives.reduce_from_group`), and the gradients of the
+experts' inputs and gates are summed back (`copy_to_group`), so every
+replicated gradient comes out whole on each rank and the router's loss
+and attention count once.
 """
 from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import time
@@ -43,6 +59,7 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..ops.gmm import aligned_group_layout, gmm
+from ..parallel.collectives import copy_to_group, reduce_from_group, sum_over_groups
 from .llama import (
     Attention,
     Dense,
@@ -50,12 +67,14 @@ from .llama import (
     LlamaConfig,
     RMSNorm,
     _param,
+    _uses_ring,
     causal_lm_loss,
     init_parameters,
     run_layer,
 )
 
 DISPATCHES = ("ragged", "capacity", "gmm")
+EXPERT_PARAMS = ("w_gate", "w_up", "w_down")
 
 
 @dataclass(frozen=True)
@@ -170,11 +189,27 @@ def _probe_seconds(cfg: MixtralConfig, tokens: int, steps: int,
     return {name: statistics.median(r) for name, r in rounds.items()}
 
 
+def _expert_parallel(mesh) -> bool:
+    return mesh is not None and mesh["expert"].size() > 1
+
+
+def _expert_dispatch(cfg: MixtralConfig) -> str:
+    """"capacity", the only dispatch of an expert mesh; raises for an
+    explicit other one (the reference leaves that to GSPMD)."""
+    if cfg.moe_dispatch not in ("auto", "capacity"):
+        raise ValueError(f"an expert-parallel mesh dispatches by capacity; moe_dispatch "
+                         f"{cfg.moe_dispatch!r} is not split over experts")
+    return "capacity"
+
+
 def resolve_moe_dispatch(cfg: MixtralConfig, tokens: int = 4096, steps: int = 10,
-                         device: DeviceLike = None) -> str:
+                         device: DeviceLike = None, mesh=None) -> str:
     """The MoE dispatch backend for this config on this device.
 
-    A config's explicit backend wins, then the env override
+    On a mesh whose "expert" axis is larger than 1 it is "capacity",
+    cached for the shape without a probe, as the reference forces it; an
+    explicit "gmm" or "ragged" raises there. Otherwise a config's
+    explicit backend wins, then the env override
     `RAY_TPU_MOE_DISPATCH`. For "auto", a timed probe of "capacity" against
     "gmm" (forward and backward of one layer at this config's widths over
     `tokens` tokens, the median of PROBE_REPEATS rounds of `steps` steps) takes
@@ -186,9 +221,12 @@ def resolve_moe_dispatch(cfg: MixtralConfig, tokens: int = 4096, steps: int = 10
     would quietly take "capacity", which on the card would hide a failing
     kernel.
     """
+    skey = _shape_key(cfg)
+    if _expert_parallel(mesh):
+        _RESOLVED[skey] = _expert_dispatch(cfg)
+        return _RESOLVED[skey]
     if cfg.moe_dispatch != "auto":
         return cfg.moe_dispatch
-    skey = _shape_key(cfg)
     env = os.environ.get("RAY_TPU_MOE_DISPATCH")
     if env:
         if env not in DISPATCHES:
@@ -232,23 +270,65 @@ def _expert_ffn(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def capacity_slots(gate_idx: torch.Tensor, expert_mask: torch.Tensor,
+                   cfg: MixtralConfig) -> Tuple[torch.Tensor, int]:
+    """Each (token, k) pair's slot in the capacity buffers [B, E * C]: the
+    first C = capacity_factor * T * K / E arrivals per expert in each batch
+    row (by a cumsum over T) keep expert * C + position, later pairs are
+    dropped to dump slots E * C + pair. Returns (slot [B, T * K], C). Rows
+    are routed apart, so splitting the batch moves no drop."""
+    b, t, k = gate_idx.shape
+    e = cfg.num_experts
+    c = max(1, int(cfg.capacity_factor * t * k / e))
+    # Arrival position of each token within its expert, per batch row.
+    position = torch.cumsum(expert_mask, dim=1) - expert_mask  # [B, T, E]
+    pos = position.gather(2, gate_idx).reshape(b, t * k).long()
+    e_flat = gate_idx.reshape(b, t * k)
+    pair = torch.arange(t * k, device=gate_idx.device)
+    return torch.where(pos < c, e_flat * c + pos, e * c + pair), c
+
+
+def is_expert_param(name: str) -> bool:
+    """Whether the parameter `name` holds experts, split over "expert"."""
+    return name.rsplit(".", 1)[-1] in EXPERT_PARAMS
+
+
 class MoELayer(nn.Module):
     """Top-k router and E SwiGLU experts. `forward(x)` returns the layer's
     output [B, T, D] and the router's load-balancing loss (Switch
     Transformer: E * sum over experts of token fraction * mean gate
     probability). Weights are stored as the reference's: router [E, D],
-    experts w_gate, w_up [E, D, F] and w_down [E, F, D]."""
+    experts w_gate, w_up [E, D, F] and w_down [E, F, D]; on an expert mesh
+    of size ep, this rank's E / ep experts of each."""
 
-    def __init__(self, cfg: MixtralConfig, *, device: DeviceLike = None,
+    def __init__(self, cfg: MixtralConfig, *, mesh=None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         e, d, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        # The groups the router's batch statistics are summed over, and the
+        # expert group with this rank's first expert.
+        self.batch_groups = [mesh.get_group(a) for a in ("data", "fsdp", "seq")
+                             if mesh is not None and mesh[a].size() > 1]
+        self.batch_ranks = math.prod(mesh[a].size() for a in ("data", "fsdp", "seq")) \
+            if mesh is not None else 1
+        self.expert_group, self.first_expert, local = None, 0, e
+        if _expert_parallel(mesh):
+            _expert_dispatch(cfg)
+            ep = mesh["expert"].size()
+            if e % ep:
+                raise ValueError(f"{e} experts do not split over an expert axis of {ep}")
+            local = e // ep
+            self.expert_group = mesh.get_group("expert")
+            self.first_expert = mesh["expert"].get_local_rank() * local
+        if mesh is not None and mesh["seq"].size() > 1 and self.dispatch() == "capacity":
+            raise ValueError("capacity positions run over the whole sequence; a mesh with "
+                             "seq > 1 takes the gmm or ragged dispatch")
         self.router = Dense(d, e, torch.float32, cfg.param_dtype, device)
-        self.w_gate = _param((e, d, f), cfg.param_dtype, device)
-        self.w_up = _param((e, d, f), cfg.param_dtype, device)
-        self.w_down = _param((e, f, d), cfg.param_dtype, device)
+        self.w_gate = _param((local, d, f), cfg.param_dtype, device)
+        self.w_up = _param((local, d, f), cfg.param_dtype, device)
+        self.w_down = _param((local, f, d), cfg.param_dtype, device)
         if generator is not None:
             init_parameters(self, generator)
             self.init_experts(generator)
@@ -256,13 +336,23 @@ class MoELayer(nn.Module):
     def experts(self) -> Tuple[torch.Tensor, ...]:
         return (self.w_gate, self.w_up, self.w_down)
 
+    def local_experts(self) -> slice:
+        """This rank's experts among all E."""
+        return slice(self.first_expert, self.first_expert + self.w_gate.shape[0])
+
     @torch.no_grad()
     def init_experts(self, generator: torch.Generator) -> None:
+        """All E experts of each weight drawn in turn, this rank's kept."""
+        e = self.cfg.num_experts
         for w in self.experts():  # [E, fan_in, fan_out]
-            w.normal_(0.0, w.shape[1] ** -0.5, generator=generator)
+            full = torch.empty((e, *w.shape[1:]), dtype=w.dtype, device=w.device)
+            full.normal_(0.0, w.shape[1] ** -0.5, generator=generator)
+            w.copy_(full[self.local_experts()])
 
     def dispatch(self) -> str:
         cfg = self.cfg
+        if self.expert_group is not None:
+            return "capacity"
         name = cfg.moe_dispatch
         if name == "auto":
             name = _RESOLVED.get(_shape_key(cfg), "capacity")
@@ -280,18 +370,26 @@ class MoELayer(nn.Module):
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
         # Top-k ids are distinct, so this is the one-hot summed over k.
         expert_mask = torch.zeros_like(probs).scatter_(-1, gate_idx, 1.0)
-        frac_tokens = expert_mask.mean(dim=(0, 1))
-        frac_probs = probs.mean(dim=(0, 1))
+        fractions = torch.stack([expert_mask.mean(dim=(0, 1)), probs.mean(dim=(0, 1))])
+        if self.batch_groups:
+            # The global batch's means: every rank holds as many rows.
+            fractions = sum_over_groups(fractions / self.batch_ranks, self.batch_groups)
+        frac_tokens, frac_probs = fractions
         aux = e * (frac_tokens * frac_probs).sum()
 
         xd = x.to(cfg.dtype)
         weights = [w.to(cfg.dtype) for w in self.experts()]
         gates = gate_vals.to(cfg.dtype)
+        if self.expert_group is not None:
+            xd = copy_to_group(xd, self.expert_group)
+            gates = copy_to_group(gates, self.expert_group)
         if dispatch == "capacity":
             out = self._capacity(xd, gate_idx, gates, expert_mask, weights)
         else:
             fn = self._gmm if dispatch == "gmm" else self._ragged
             out = fn(xd, gate_idx, gates, weights)
+        if self.expert_group is not None:
+            out = reduce_from_group(out, self.expert_group)
         return out, aux
 
     def _gmm(self, x, gate_idx, gates, weights):
@@ -337,46 +435,44 @@ class MoELayer(nn.Module):
         return out.reshape(b, t, d)
 
     def _capacity(self, x, gate_idx, gates, expert_mask, weights):
-        """Capacity-bounded [E, B, C, D] buffers: the first C arrivals per
-        expert in each batch row keep their slot, later pairs are dropped."""
-        cfg = self.cfg
+        """Capacity-bounded [E, B, C, D] buffers (`capacity_slots`), of this
+        rank's experts only; pairs of other experts and dropped pairs read
+        a zero row in the combine."""
         b, t, d = x.shape
-        e, k = cfg.num_experts, cfg.num_experts_per_tok
-        c = max(1, int(cfg.capacity_factor * t * k / e))
+        k = self.cfg.num_experts_per_tok
         nk = t * k
+        slot, c = capacity_slots(gate_idx, expert_mask, self.cfg)
+        experts = self.local_experts()
+        lo, n_local = experts.start * c, (experts.stop - experts.start) * c
         dev = x.device
-        # Arrival position of each token within its expert, per batch row.
-        position = torch.cumsum(expert_mask, dim=1) - expert_mask  # [B, T, E]
-        pos = position.gather(2, gate_idx).reshape(b, nk).long()
-        e_flat = gate_idx.reshape(b, nk)
         pair = torch.arange(nk, device=dev)
-        # Dropped pairs land in per-pair dump slots past E * C.
-        slot = torch.where(pos < c, e_flat * c + pos, e * c + pair)
-        inv = torch.full((b, e * c + nk), t, dtype=torch.long, device=dev).scatter_(
-            1, slot, (pair // k).expand(b, nk))
+        inv = torch.full((b, self.cfg.num_experts * c + nk), t, dtype=torch.long,
+                         device=dev).scatter_(1, slot, (pair // k).expand(b, nk))
         rows = torch.arange(b, device=dev)[:, None]
         x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-        buf = x_pad[rows, inv[:, : e * c]]  # [B, E*C, D] row gather
-        expert_in = buf.reshape(b, e, c, d).transpose(0, 1)  # [E, B, C, D]
+        buf = x_pad[rows, inv[:, lo:lo + n_local]]  # [B, E_local*C, D] row gather
+        expert_in = buf.reshape(b, -1, c, d).transpose(0, 1)  # [E_local, B, C, D]
         w_gate, w_up, w_down = weights
         h = torch.einsum("ebcd,edf->ebcf", expert_in, w_gate)
         u = torch.einsum("ebcd,edf->ebcf", expert_in, w_up)
         expert_out = torch.einsum("ebcf,efd->ebcd", F.silu(h) * u, w_down)
-        expert_out = expert_out.transpose(0, 1).reshape(b, e * c, d)
+        expert_out = expert_out.transpose(0, 1).reshape(b, n_local, d)
         eo_pad = torch.cat([expert_out, x.new_zeros((b, 1, d))], dim=1)
-        pair_out = eo_pad[rows, slot.clamp_max(e * c)] * gates.reshape(b, nk)[..., None]
+        mine = (slot >= lo) & (slot < lo + n_local)
+        local_slot = torch.where(mine, slot - lo, n_local)
+        pair_out = eo_pad[rows, local_slot] * gates.reshape(b, nk)[..., None]
         return pair_out.reshape(b, t, k, d).sum(2)
 
 
 class MoEDecoderLayer(nn.Module):
-    def __init__(self, cfg: MixtralConfig, device):
+    def __init__(self, cfg: MixtralConfig, device, mesh=None):
         super().__init__()
         norm = functools.partial(RMSNorm, cfg.hidden_size, cfg.rms_eps,
                                  cfg.param_dtype, device)
         self.input_norm = norm()
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, mesh)
         self.post_attn_norm = norm()
-        self.moe = MoELayer(cfg, device=device)
+        self.moe = MoELayer(cfg, mesh=mesh, device=device)
 
     def forward(self, x, positions):
         h = x + self.attn(self.input_norm(x), positions)
@@ -388,17 +484,23 @@ class MixtralForCausalLM(nn.Module):
     """The sparse-MoE causal LM. Parameters are made on `device` (the CUDA
     card unless the caller passes one) from `generator`, seed 0 by default:
     normal with std 1/sqrt(fan_in) for projections, router and experts,
-    1/sqrt(hidden) for the embedding, ones for norm scales."""
+    1/sqrt(hidden) for the embedding, ones for norm scales. Every rank of
+    a `mesh` draws the same weights and keeps its experts; `forward` takes
+    this rank's rows (and sequence shard; `parallel.step.shard_batch`)."""
 
-    def __init__(self, cfg: MixtralConfig, *, device: DeviceLike = None,
+    def __init__(self, cfg: MixtralConfig, mesh=None, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
+        if mesh is not None and mesh["tensor"].size() > 1:
+            raise ValueError("the Mixtral port splits experts, rows and the sequence; "
+                             "its tensor parallelism is not ported")
         self.cfg = cfg
+        self.seq_rank = mesh["seq"].get_local_rank() if _uses_ring(mesh) else 0
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype,
                                   cfg.param_dtype, device)
         self.layers = nn.ModuleList(
-            MoEDecoderLayer(cfg, device) for _ in range(cfg.num_layers)
+            MoEDecoderLayer(cfg, device, mesh) for _ in range(cfg.num_layers)
         )
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps,
                                   cfg.param_dtype, device)
@@ -416,8 +518,9 @@ class MixtralForCausalLM(nn.Module):
         list of each layer's router loss."""
         cfg = self.cfg
         if positions is None:
+            t = input_ids.shape[1]
             positions = torch.arange(
-                input_ids.shape[1], device=input_ids.device
+                self.seq_rank * t, (self.seq_rank + 1) * t, device=input_ids.device
             ).expand(input_ids.shape)
         x = self.embed_tokens(input_ids)
         aux: List[torch.Tensor] = []
@@ -441,3 +544,10 @@ def moe_lm_loss(model: MixtralForCausalLM, input_ids: torch.Tensor,
     if aux:
         loss = loss + model.cfg.router_aux_loss_coef * (sum(aux) / len(aux))
     return loss
+
+
+def shard_experts(state: Dict[str, torch.Tensor], model: MixtralForCausalLM) -> Dict[str, torch.Tensor]:
+    """A single-device state dict cut to `model`'s experts: each expert
+    tensor [E, ...] sliced to this rank's, everything else as it is."""
+    experts = model.layers[0].moe.local_experts()
+    return {name: (w[experts] if is_expert_param(name) else w) for name, w in state.items()}

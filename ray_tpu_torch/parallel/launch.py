@@ -2,7 +2,8 @@
 
 `spawn(fn, world_size, *args)` starts `world_size` processes with the
 `spawn` method (never `fork`: the caller may hold a CUDA context), joins
-them into one gloo process group through a `FileStore` in a fresh
+them into one process group (gloo unless asked for NCCL) through a
+`FileStore` in a fresh
 temporary directory (no TCP port, so concurrent worlds cannot collide),
 runs `fn(rank, world_size, *args)` in each on one CPU thread and returns
 the results by rank. The group's timeout (`PG_TIMEOUT_S`) bounds every
@@ -15,8 +16,12 @@ tensors through host memory); NCCL would refuse that.
 The drivers below are what the ranks run, for the tests and for
 `chip_smoke.py`: the ring on random inputs (`run_ring`), the
 sequence-parallel Llama's logits, loss and gradients (`run_llama_grads`)
-and its train steps (`run_llama_train`), and the data x fsdp x tensor
-step of `shard_params` (`run_sharded_grads`). They import the port only.
+and its train steps (`run_llama_train`), the step of `shard_params` on
+data x fsdp x seq x tensor (`run_sharded_grads`), the pipeline of the
+reference's tanh stages (`run_pipeline`) and of a Llama's decoder layers
+(`run_pipeline_llama`, with `sequential_llama` its one-process oracle),
+and the expert-parallel Mixtral's gradients (`run_mixtral_grads`) and
+train steps (`run_mixtral_train`). They import the port only.
 """
 from __future__ import annotations
 
@@ -44,12 +49,12 @@ POLL_S = 0.05
 PG_TIMEOUT_S = 60
 
 
-def _worker(rank, world_size, root, fn, args):
+def _worker(rank, world_size, root, backend, fn, args):
     torch.set_num_threads(1)
     out = Path(root) / f"rank{rank}"
     try:
         dist.init_process_group(
-            "gloo", store=dist.FileStore(str(Path(root) / "store"), world_size),
+            backend, store=dist.FileStore(str(Path(root) / "store"), world_size),
             rank=rank, world_size=world_size, timeout=timedelta(seconds=PG_TIMEOUT_S))
         try:
             result = fn(rank, world_size, *args)
@@ -62,14 +67,17 @@ def _worker(rank, world_size, root, fn, args):
         raise
 
 
-def spawn(fn: Callable, world_size: int, *args, deadline_s: float = 120.0) -> List[Any]:
+def spawn(fn: Callable, world_size: int, *args, deadline_s: float = 120.0,
+          backend: str = "gloo") -> List[Any]:
     """`fn(rank, world_size, *args)` on `world_size` new processes of one
-    process group; returns the results in rank order. `fn` and `args`
-    must pickle (`fn` a module-level function). Raises if a rank fails or
-    the world outlives `deadline_s`, after killing every process."""
+    process group (`backend`: gloo, or NCCL with one card per rank);
+    returns the results in rank order. `fn` and `args` must pickle (`fn` a
+    module-level function). Raises if a rank fails or the world outlives
+    `deadline_s`, after killing every process."""
     ctx = multiprocessing.get_context("spawn")
     root = tempfile.mkdtemp(prefix="ray_tpu_torch_world_")
-    procs = [ctx.Process(target=_worker, daemon=True, args=(r, world_size, root, fn, args))
+    procs = [ctx.Process(target=_worker, daemon=True,
+                         args=(r, world_size, root, backend, fn, args))
              for r in range(world_size)]
     try:
         for p in procs:
@@ -202,16 +210,39 @@ def run_llama_grads(rank, world_size, spec: MeshSpec, cfgs, weights, ids: np.nda
     return out
 
 
-def param_digest(model: torch.nn.Module) -> Tuple[float, float]:
-    """Sum and sum of squares of every parameter, in float64: equal on
-    ranks whose parameters are equal, on one kind of device."""
+def param_digest(model: torch.nn.Module,
+                 keep: Callable[[str], bool] = lambda name: True) -> Tuple[float, float]:
+    """Sum and sum of squares of every parameter whose name `keep` takes,
+    in float64: equal on ranks whose parameters are equal, on one kind of
+    device."""
     total = squares = 0.0
     with torch.no_grad():
-        for p in model.parameters():
-            x = p.detach().double()
-            total += float(x.sum())
-            squares += float((x * x).sum())
+        for name, p in model.named_parameters():
+            if keep(name):
+                x = p.detach().double()
+                total += float(x.sum())
+                squares += float((x * x).sum())
     return total, squares
+
+
+def _train(model, mesh, ids: np.ndarray, steps: int, loss_fn: LossFn,
+           device: torch.device) -> Dict[str, Any]:
+    """`step.train_step` of `model` on this rank's block of `ids`, AdamW
+    of `train.make_optimizer`: one step, then `steps` timed ones."""
+    from ..ops import attention as A
+
+    ids_l, targets_l = _local_batch(ids, mesh, device)
+    optimizer = make_optimizer(model)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    A.reset_launch_counts()
+    losses, seconds = timed_steps(
+        lambda: train_step(model, optimizer, ids_l, targets_l, mesh, loss_fn), steps)
+    return {"losses": losses, "step_ms": seconds / steps * 1e3, "launches": dict(A.LAUNCHES),
+            "param_digest": param_digest(model),
+            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
+            **_where(device)}
 
 
 def run_llama_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
@@ -225,31 +256,18 @@ def run_llama_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, step
     mean ms, this rank's kernel launches over all steps, its parameters'
     digest after the last step (`param_digest`), its peak memory and
     where it ran."""
-    from ..ops import attention as A
-
     device = _rank_device(device)
     mesh = spec.build(device.type)
-    ids_l, targets_l = _local_batch(ids, mesh, device)
-    model = _llama(cfg, mesh, None, device)
-    optimizer = make_optimizer(model)
-    loss_fn = loss_fn or lm_loss
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-    A.reset_launch_counts()
-    losses, seconds = timed_steps(
-        lambda: train_step(model, optimizer, ids_l, targets_l, mesh, loss_fn), steps)
-    return {"losses": losses, "step_ms": seconds / steps * 1e3, "launches": dict(A.LAUNCHES),
-            "param_digest": param_digest(model),
-            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
-            "seq_rank": mesh["seq"].get_local_rank(), **_where(device)}
+    out = _train(_llama(cfg, mesh, None, device), mesh, ids, steps, loss_fn or lm_loss, device)
+    return {**out, "seq_rank": mesh["seq"].get_local_rank()}
 
 
 def run_sharded_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.ndarray,
                       device: DeviceLike = None) -> Dict[str, Any]:
-    """The Llama placed by `shard_params` (tensor parallelism, then FSDP2
-    over data and fsdp) on this rank's rows of `ids` (targets rolled):
-    the global loss and every gradient, gathered whole."""
+    """The Llama built on the mesh and placed by `shard_params` (tensor
+    parallelism, then FSDP2 over data and fsdp; the ring over seq) on
+    this rank's block of `ids` (targets rolled): the global loss and
+    every gradient, gathered whole."""
     from .mesh import shard_params
 
     device = _rank_device(device)
@@ -259,3 +277,208 @@ def run_sharded_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.nd
     loss = forward_backward(model, ids_l, targets_l, mesh=mesh)
     return {"loss": float(loss),
             "grads": {n: p.grad.full_tensor().cpu() for n, p in model.named_parameters()}}
+
+
+# ------------------------------------------------------------ pipeline
+
+
+def tanh_stage(params, x):
+    """The reference's test and dryrun stage: tanh(x W + b)."""
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def pipe_mesh(n_stages: int, device_type: str):
+    """The 1-D `pipe` mesh over ranks 0..n_stages-1 of the world (the
+    reference's `Mesh(devices[:n], ("pipe",))`); the other ranks hold no
+    coordinate."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (n_stages,), mesh_dim_names=("pipe",))
+
+
+def run_pipeline(rank, world_size, cases: Sequence[Dict[str, Any]],
+                 device: DeviceLike = None) -> List[Optional[Dict[str, Any]]]:
+    """For each case (per-stage `weights` {"w", "b"} as numpy, `x` [M, mb,
+    d], `remat`): the `tanh_stage` pipeline over the first S ranks, S the
+    number of stages, its output, the gradients of mean(y^2) with respect
+    to this rank's stage and the input, and how often the stage ran. A
+    rank outside the pipeline gives None."""
+    from .pipeline import local_stage, pipelined, stack_stage_params
+
+    device = _rank_device(device)
+    out: List[Optional[Dict[str, Any]]] = []
+    for case in cases:
+        weights = case["weights"]
+        mesh = pipe_mesh(len(weights), device.type)
+        if mesh.get_coordinate() is None:
+            out.append(None)
+            continue
+        stacked = stack_stage_params([{k: torch.from_numpy(v).to(device) for k, v in w.items()}
+                                      for w in weights])
+        params = {k: v.clone().requires_grad_() for k, v in local_stage(stacked, mesh).items()}
+        x = torch.from_numpy(case["x"]).to(device).requires_grad_()
+        calls = [0]
+
+        def stage(p, h):
+            calls[0] += 1
+            return tanh_stage(p, h)
+
+        apply = pipelined(stage, mesh=mesh, n_microbatches=x.shape[0], remat=case["remat"])
+        y = apply(params, x)
+        y.pow(2).mean().backward()
+        out.append({"stage": mesh.get_local_rank("pipe"), "y": y.detach().cpu(),
+                    "grads": {k: v.grad.cpu() for k, v in params.items()},
+                    "dx": x.grad.cpu(), "stage_calls": calls[0]})
+    return out
+
+
+def llama_stages(cfg, n_stages: int, layers_per_stage: int, ids: np.ndarray,
+                 device: torch.device):
+    """The seed-0 Llama of `n_stages * layers_per_stage` decoder layers cut
+    into stages: (the stages, ModuleLists of `layers_per_stage` layers in
+    order; x, the embedding of `ids` [M, mb, T]; the stage function, which
+    runs a stage's layers through `models.llama.run_layer` at positions
+    0..T-1)."""
+    from dataclasses import replace
+
+    from ..models.llama import LlamaForCausalLM, run_layer
+
+    cfg = replace(cfg, num_layers=n_stages * layers_per_stage)
+    model = LlamaForCausalLM(cfg, device=device)
+    tids = torch.as_tensor(ids, dtype=torch.long, device=device)
+    with torch.no_grad():
+        x = model.embed_tokens(tids)
+    positions = torch.arange(tids.shape[-1], device=device).expand(tids.shape[1:])
+    stages = [torch.nn.ModuleList(model.layers[i * layers_per_stage:(i + 1) * layers_per_stage])
+              for i in range(n_stages)]
+
+    def stage_fn(layers, h):
+        for layer in layers:
+            h = run_layer(cfg, layer, h, positions)
+        return h
+
+    return stages, x, stage_fn
+
+
+def _sgd_steps(forward: Callable[[], torch.Tensor], modules, steps: int, lr: float):
+    """One SGD step of mean(y^2), y = forward(), then `steps` timed ones;
+    returns (the first step's y and each module's gradients, on the CPU;
+    every loss; the timed seconds)."""
+    optimizer = torch.optim.SGD([p for m in modules for p in m.parameters()], lr=lr)
+    first: Dict[str, Any] = {}
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        y = forward()
+        loss = y.float().pow(2).mean()
+        loss.backward()
+        if not first:
+            first["y"] = y.detach().cpu()
+            first["grads"] = [{n: p.grad.cpu() for n, p in m.named_parameters()}
+                              for m in modules]
+        optimizer.step()
+        return loss.detach()
+
+    losses, seconds = timed_steps(step, steps)
+    return first, losses, seconds
+
+
+def sequential_llama(cfg, n_stages: int, layers_per_stage: int, ids: np.ndarray, steps: int,
+                     lr: float, device: DeviceLike = None) -> Dict[str, Any]:
+    """`run_pipeline_llama`'s oracle in one process: the same stages run
+    in sequence over each microbatch (`pipeline.sequential_reference`),
+    the same SGD steps."""
+    from .pipeline import sequential_reference
+
+    device = resolve_device(device)
+    stages, x, stage_fn = llama_stages(cfg, n_stages, layers_per_stage, ids, device)
+    first, losses, seconds = _sgd_steps(lambda: sequential_reference(stage_fn, stages, x),
+                                        stages, steps, lr)
+    return {"y": first["y"], "grads": first["grads"], "losses": losses,
+            "step_ms": seconds / steps * 1e3}
+
+
+def run_pipeline_llama(rank, world_size, cfg, layers_per_stage: int, ids: np.ndarray,
+                       steps: int, lr: float, device: DeviceLike = None) -> Dict[str, Any]:
+    """A Llama's decoder layers as a pipeline of `world_size` stages:
+    stage s holds layers [s L/S, (s+1) L/S) of the seed-0 model
+    (`llama_stages`), ids [M, mb, T] are embedded by that model and go in
+    as M microbatches. One SGD step (rate `lr`) of mean(y^2), then
+    `steps` timed ones.
+    Returns the first step's y and this stage's gradients, every loss, the
+    timed steps' mean ms, the kernels' launches over all steps, the peak
+    memory and where it ran."""
+    from ..ops import attention as A
+    from .pipeline import pipelined
+
+    device = _rank_device(device)
+    mesh = pipe_mesh(world_size, device.type)
+    s = mesh.get_local_rank("pipe")
+    stages, x, stage_fn = llama_stages(cfg, world_size, layers_per_stage, ids, device)
+    stage = stages[s]
+    del stages
+    apply = pipelined(stage_fn, mesh=mesh, n_microbatches=x.shape[0])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    A.reset_launch_counts()
+    first, losses, seconds = _sgd_steps(lambda: apply(stage, x), [stage], steps, lr)
+    return {"stage": s, "y": first["y"], "grads": first["grads"][0], "losses": losses,
+            "step_ms": seconds / steps * 1e3, "launches": dict(A.LAUNCHES),
+            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
+            **_where(device)}
+
+
+# ------------------------------------------------------------ expert parallelism
+
+
+def _mixtral(cfg, mesh, weights, device):
+    from ..models.mixtral import MixtralForCausalLM, shard_experts
+
+    model = MixtralForCausalLM(cfg, mesh, device=device)  # seed 0 on every rank
+    if weights is not None:
+        model.load_state_dict(shard_experts(weights, model))
+    return model
+
+
+def _expert_coordinates(mesh) -> Dict[str, int]:
+    return {"expert_rank": mesh["expert"].get_local_rank(),
+            "data_rank": mesh["data"].get_local_rank() * mesh["fsdp"].size()
+            + mesh["fsdp"].get_local_rank()}
+
+
+def run_mixtral_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.ndarray,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """The Mixtral built on the mesh (experts split over "expert", rows
+    over "data" and "fsdp") on this rank's rows of `ids`: their logits,
+    the global `moe_lm_loss` and every gradient, reduced over the mesh
+    (expert weights: this rank's experts only)."""
+    from ..models.mixtral import moe_lm_loss
+
+    device = _rank_device(device)
+    mesh = spec.build(device.type)
+    ids_l, targets_l = _local_batch(ids, mesh, device)
+    model = _mixtral(cfg, mesh, weights, device)
+    with torch.no_grad():
+        logits = model(ids_l).cpu()
+    loss = forward_backward(model, ids_l, targets_l, moe_lm_loss, mesh=mesh)
+    return {"logits": logits, "loss": float(loss), **_expert_coordinates(mesh),
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+
+
+def run_mixtral_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """The expert-parallel Mixtral train step: the weights of seed 0,
+    `moe_lm_loss`, AdamW of `train.make_optimizer`; one step, then `steps`
+    timed ones. Returns what `run_llama_train` does, the digest of the
+    parameters that are not split over experts, and the rank's expert and
+    data coordinates."""
+    from ..models.mixtral import is_expert_param, moe_lm_loss
+
+    device = _rank_device(device)
+    mesh = spec.build(device.type)
+    model = _mixtral(cfg, mesh, None, device)
+    out = _train(model, mesh, ids, steps, moe_lm_loss, device)
+    return {**out, **_expert_coordinates(mesh),
+            "replicated_digest": param_digest(model, lambda n: not is_expert_param(n))}

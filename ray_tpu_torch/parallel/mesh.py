@@ -181,8 +181,11 @@ def shard_params(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     sharded over "fsdp"). FSDP2 shards each parameter on the dim that
     `spec_for_param` gives to "fsdp". Gradients come out reduced: summed
     over "tensor" where the layer needs it, averaged over "data" and
-    "fsdp". The reference's `shard_params` only places arrays and leaves
-    the collectives to GSPMD."""
+    "fsdp". On a mesh with "seq" the model must have been built on it
+    (its attention runs the ring over the TP-local heads), and
+    `parallel.step.reduce_gradients` adds the sum over "seq". The
+    reference's `shard_params` only places arrays and leaves the
+    collectives to GSPMD."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
@@ -190,9 +193,12 @@ def shard_params(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
         parallelize_module,
     )
 
-    if mesh["seq"].size() > 1 or mesh["expert"].size() > 1:
-        raise ValueError("shard_params places over data, fsdp and tensor; a mesh with "
-                         "seq or expert > 1 goes through parallel.step")
+    if mesh["expert"].size() > 1:
+        raise ValueError("shard_params places a Llama; experts are split over the "
+                         "expert axis by models.mixtral.MixtralForCausalLM(cfg, mesh)")
+    if mesh["seq"].size() > 1 and any(layer.attn.ring_mesh is None for layer in model.layers):
+        raise ValueError("a mesh with seq > 1 needs a model built on it "
+                         "(LlamaForCausalLM(cfg, mesh)), whose attention runs the ring")
     if mesh["tensor"].size() > 1:
         plan: Dict[str, Any] = {
             "embed_tokens": RowwiseParallel(input_layouts=Replicate(),

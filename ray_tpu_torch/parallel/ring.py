@@ -1,4 +1,5 @@
-"""The neighbour exchange of ring attention on torch.distributed.
+"""The neighbour exchange of ring attention and the pipeline on
+torch.distributed.
 
 `ring_shift` is the reference's `lax.ppermute(x, axis, [(i, i + 1) % n])`
 (`ray_tpu/ops/ring_attention.py:135-136`): every rank of a group sends
@@ -52,18 +53,20 @@ class Shift:
                 for t, buf, stage in zip(self._tensors, self._recvs, self._staged)]
 
 
-def start_shift(tensors: Sequence[torch.Tensor], group) -> Shift:
+def start_shift(tensors: Sequence[torch.Tensor], group, *, reverse: bool = False) -> Shift:
     """Posts the sends of each tensor to rank (r + 1) % n of `group` and
-    the receives of those rank (r - 1) % n sends; `wait()` returns them as
-    new tensors of the same shapes, dtypes and devices. The tensors must
-    not change until then. With one rank, `wait()` returns the tensors as
+    the receives of those rank (r - 1) % n sends (with `reverse`, to
+    (r - 1) % n and from (r + 1) % n); `wait()` returns them as new
+    tensors of the same shapes, dtypes and devices. The tensors must not
+    change until then. With one rank, `wait()` returns the tensors as
     they are."""
     n = dist.get_world_size(group)
     if n == 1:
         return Shift(tensors)
     r = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (r + 1) % n)
-    src = dist.get_global_rank(group, (r - 1) % n)
+    step = -1 if reverse else 1
+    dst = dist.get_global_rank(group, (r + step) % n)
+    src = dist.get_global_rank(group, (r - step) % n)
     staged = [host_staged(group, t) for t in tensors]
     sends, recvs = [], []
     for t, stage in zip(tensors, staged):

@@ -15,8 +15,8 @@ explicit:
 - gradients are summed over `seq` and averaged over `data` and `fsdp`.
 
 A model placed by `parallel.mesh.shard_params` holds DTensor parameters,
-whose gradients FSDP2 and tensor parallelism reduce themselves; only
-plain-tensor gradients are reduced here.
+whose gradients FSDP2 and tensor parallelism reduce over "data", "fsdp"
+and "tensor"; only their sum over "seq" is added here.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from torch.distributed.tensor import DTensor
 
 from .. import train
 from ..train import LossFn, lm_loss
-from . import ring
+from .collectives import all_reduce_sum_
 
 BATCH_AXES = ("data", "fsdp")
 
@@ -52,20 +52,6 @@ def shard_batch(ids: torch.Tensor, targets: torch.Tensor,
     return ids[rows, cols], targets[rows, cols]
 
 
-def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sums `t` over `group` in place, through host memory where the
-    group's backend cannot take `t`'s device (`ring.host_staged`)."""
-    if dist.get_world_size(group) == 1:
-        return t
-    if ring.host_staged(group, t):
-        host = t.to("cpu", copy=True)
-        dist.all_reduce(host, group=group)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, group=group)
-    return t
-
-
 def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
     """Sum over "seq", mean over "data" and "fsdp", in place."""
     all_reduce_sum_(t, mesh.get_group("seq"))
@@ -76,17 +62,35 @@ def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
     return t
 
 
+def _flat_(grads, reduce) -> None:
+    """`reduce` over one flat buffer of `grads` (one dtype), copied back."""
+    flat = reduce(torch.cat([g.reshape(-1) for g in grads]))
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def reduce_gradients(model: torch.nn.Module, mesh) -> None:
     """Reduces every plain-tensor gradient over the mesh (`_reduce`), one
-    flat buffer per dtype."""
-    by_dtype = {}
+    flat buffer per dtype. A DTensor gradient (`parallel.mesh.shard_params`)
+    comes out of backward reduced by FSDP2 over "data" and "fsdp" and by
+    tensor parallelism over "tensor"; its local shard is then summed over
+    "seq" here, through `all_reduce_sum_`, so that host staging applies.
+    An expert axis needs nothing: its ranks see the same rows, and the
+    MoE layer's own collectives leave every replicated gradient whole on
+    each of them (`models.mixtral`)."""
+    plain, sharded = {}, {}
     for p in model.parameters():
-        if p.grad is not None and not isinstance(p.grad, DTensor):
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        flat = _reduce(torch.cat([g.reshape(-1) for g in grads]), mesh)
-        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
+        if p.grad is None:
+            continue
+        if isinstance(p.grad, DTensor):
+            sharded.setdefault(p.grad.dtype, []).append(p.grad.to_local())
+        else:
+            plain.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in plain.values():
+        _flat_(grads, lambda t: _reduce(t, mesh))
+    if mesh["seq"].size() > 1:
+        for grads in sharded.values():
+            _flat_(grads, lambda t: all_reduce_sum_(t, mesh.get_group("seq")))
 
 
 def forward_backward(model, ids, targets, loss_fn: LossFn = lm_loss, *, mesh) -> torch.Tensor:
