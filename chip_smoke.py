@@ -106,6 +106,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    peak memory per rank. The dense four-axis dryrun
    (`ray_tpu_torch.dryrun`) does not run on one card, and the phase says
    so.
+17. the runtime (`ray_tpu_torch.init()` with no arguments): the card
+   detected as GPU 1; a 64 MiB bf16 CUDA tensor put by this process and
+   taken by a `num_gpus=1` actor, which sees CUDA_VISIBLE_DEVICES 0 and
+   the card, moves it there and checksums its bits there; a CUDA tensor
+   the actor puts, got here bitwise equal to the actor's host copy; a
+   task without `num_gpus` sees CUDA_VISIBLE_DEVICES "" and no device;
+   the times and GB/s of each put and get;
+18. `TorchTrainer` at llama-1b, one GPU worker: the loop runs phase 5
+   (the same model, seed and batches through `bench_model`) with K1-K3
+   counted in the worker, reports each loss and saves the state dict
+   with `save_pytree` into its checkpoint; the losses equal phase 5's
+   (rtol 1e-3) and fall, the launches are phase 5's per step, and the
+   checkpoint reloaded into a fresh llama-1b on this card gives the
+   worker's loss of a fixed batch (rtol 1e-5); the worker's step beside
+   phase 5's.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -185,6 +200,15 @@ PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO, PIPE_LR = 2, 11, 4, 1e-3
 # Expert parallelism: mixtral-small on data 2 x expert 2, 4 ranks sharing
 # the card.
 EXPERT_DATA, EXPERT_EP = 2, 2
+# The runtime's object plane: a 64 MiB bf16 tensor each way between the
+# driver and a one-GPU actor.
+OBJECT_MIB = 64
+# TorchTrainer's worker against phase 5 in this process: the same
+# kernels, card, seed and batches, so the losses should be bitwise equal.
+TRAINER_LOSS_RTOL = 1e-3
+# The checkpoint reloaded on the driver's card against the worker's own
+# no-grad loss of the same batch.
+RELOAD_LOSS_RTOL = 1e-5
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -1243,6 +1267,210 @@ def phase_expert(A, card):
           "over gloo", flush=True)
 
 
+def _bitwise_checksum(t):
+    """A checksum of a bf16 tensor's bits, computed where the tensor lies:
+    each 16-bit word weighted by its position, so a moved word counts."""
+    import torch
+
+    words = t.reshape(-1).view(torch.int16).to(torch.int64)
+    weights = torch.arange(words.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+    return int((words * weights).sum())
+
+
+def phase_object_plane(card):
+    """The runtime on the card: GPU detection, a bf16 CUDA tensor through
+    the object store to a one-GPU actor and another back, and a CPU task
+    that sees no card."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    rt.init()
+    resources = rt.cluster_resources()
+    print(f"runtime resources: {resources}", flush=True)
+    check(resources.get("GPU") == 1.0, f"the runtime detected {resources.get('GPU')} GPUs")
+
+    n = OBJECT_MIB * 1024 * 1024 // 2
+    gb = OBJECT_MIB * 1024 * 1024 / 1e9
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(17),
+                    device="cuda", dtype=torch.bfloat16)
+    want = _bitwise_checksum(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rt.put(x)
+    put_s = time.perf_counter() - t0
+
+    @rt.remote(num_gpus=1)
+    class OnCard:
+        def take(self, refs):
+            import os
+            import time
+
+            import torch
+
+            t0 = time.perf_counter()
+            host = rt.get(refs[0])
+            get_s = time.perf_counter() - t0
+            on_card = host.cuda()
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.get_device_name(),
+                    str(on_card.device), _bitwise_checksum(on_card), get_s)
+
+        def give(self):
+            import time
+
+            import torch
+
+            y = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(18),
+                            device="cuda", dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = rt.put(y)
+            put_s = time.perf_counter() - t0
+            return [ref], y.cpu(), put_s
+
+    actor = OnCard.remote()
+    visible, name, device, got, actor_get_s = rt.get(actor.take.remote([ref]), timeout=300)
+    check(visible == "0", f"the GPU actor sees CUDA_VISIBLE_DEVICES={visible!r}")
+    check(name == torch.cuda.get_device_name(0), f"the GPU actor sees {name}")
+    check(got == want, f"the actor's checksum {got} of the driver's tensor != {want}")
+    (back_ref,), host_copy, actor_put_s = rt.get(actor.give.remote(), timeout=300)
+    t0 = time.perf_counter()
+    back = rt.get(back_ref, timeout=300)
+    get_s = time.perf_counter() - t0
+    check(back.device.type == "cpu" and back.dtype == torch.bfloat16
+          and back.shape == host_copy.shape, "the actor's tensor came back changed")
+    check(torch.equal(back.view(torch.int16), host_copy.view(torch.int16)),
+          "the actor's CUDA tensor is not bitwise equal after put/get")
+    rt.kill(actor)
+
+    @rt.remote
+    def no_card():
+        import os
+
+        import torch
+
+        return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.device_count()
+
+    seen = rt.get(no_card.remote(), timeout=300)
+    check(seen == ("", 0), f"a task without num_gpus sees {seen}")
+    print(f"object plane on {card}: GPU actor on {device} of {name} "
+          f"(CUDA_VISIBLE_DEVICES={visible}), {OBJECT_MIB} MiB bf16 bitwise equal both ways; "
+          f"driver put from the card {put_s * 1e3:.1f} ms ({gb / put_s:.2f} GB/s), actor get "
+          f"{actor_get_s * 1e3:.1f} ms ({gb / actor_get_s:.2f} GB/s), actor put from its card "
+          f"{actor_put_s * 1e3:.1f} ms ({gb / actor_put_s:.2f} GB/s), driver get "
+          f"{get_s * 1e3:.1f} ms ({gb / get_s:.2f} GB/s); a task without num_gpus sees "
+          f"CUDA_VISIBLE_DEVICES='' and 0 devices: ok", flush=True)
+
+
+def trainer_loop(config):
+    """phase_trainer's loop, in a GPU worker of the runtime: phase 5's
+    llama-1b train through bench_model, then a checkpoint of the model."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS, bench_model
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM, causal_lm_loss
+    from ray_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    A.reset_launch_counts()
+    r = bench_model(model, BATCH, SEQ, TIMED_STEPS, H100_BF16_PEAK_FLOPS)
+    launches = dict(A.LAUNCHES)
+    for step, loss in enumerate(r["losses"]):
+        train.report({"step": step, "loss": loss})
+    d = tempfile.mkdtemp(dir=config["scratch"])
+    save_s = time.perf_counter()
+    train.save_pytree(os.path.join(d, "model"), model.state_dict())
+    save_s = time.perf_counter() - save_s
+    ids = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab_size, (BATCH, SEQ)),
+                          dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        fixed = float(causal_lm_loss(model(ids), torch.roll(ids, -1, dims=1)))
+    train.report({"fixed_loss": fixed, "step_ms": r["step_ms"], "launches": launches,
+                  "card": torch.cuda.get_device_name(), "save_s": save_s,
+                  "visible": os.environ.get("CUDA_VISIBLE_DEVICES")},
+                 checkpoint=train.Checkpoint(d))
+
+
+def phase_trainer(A, card, in_process):
+    """TorchTrainer at llama-1b on one GPU worker, held against phase 5's
+    in-process run (`in_process`), and its checkpoint reloaded here."""
+    import shutil
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM, causal_lm_loss
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        t0 = time.perf_counter()
+        result = train.TorchTrainer(
+            trainer_loop, train_loop_config={"scratch": scratch},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(storage_path=os.path.join(scratch, "results")),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"TorchTrainer failed: {result.error}")
+        history = result.metrics_history
+        losses = [m["loss"] for m in history if "loss" in m]
+        final = history[-1]
+        check(len(losses) == TIMED_STEPS + 1, f"the worker reported {len(losses)} losses")
+        check(all(math.isfinite(x) for x in losses), f"trainer loss not finite: {losses}")
+        check(losses[-1] < losses[0], f"trainer loss did not fall: {losses}")
+        steps = TIMED_STEPS + 1
+        layers = CONFIGS["llama-1b"].num_layers
+        per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+        for name, k in per_step.items():
+            check(final["launches"][name] == k * steps,
+                  f"trainer: {name} launched {final['launches'][name]} times in {steps} "
+                  f"steps, expected {k * steps}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, in_process["losses"])]
+        check(max(rel) <= TRAINER_LOSS_RTOL,
+              f"trainer losses {losses} vs in-process {in_process['losses']}: relative {rel}")
+        check(final["visible"] == "0", f"the train worker sees {final['visible']!r}")
+
+        cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+        fresh = LlamaForCausalLM(cfg, device="cuda")
+        t0 = time.perf_counter()
+        train.load_pytree(os.path.join(result.checkpoint.path, "model"), fresh.state_dict())
+        load_s = time.perf_counter() - t0
+        ids = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab_size, (BATCH, SEQ)),
+                              dtype=torch.long, device="cuda")
+        with torch.no_grad():
+            reloaded = float(causal_lm_loss(fresh(ids), torch.roll(ids, -1, dims=1)))
+        reload_rel = abs(reloaded - final["fixed_loss"]) / abs(final["fixed_loss"])
+        check(reload_rel <= RELOAD_LOSS_RTOL,
+              f"reloaded loss {reloaded} vs the worker's {final['fixed_loss']} "
+              f"(relative {reload_rel:.2e})")
+        print(f"TorchTrainer llama-1b b{BATCH} s{SEQ} bf16, 1 GPU worker on {final['card']} "
+              f"(CUDA_VISIBLE_DEVICES={final['visible']}) of {card}: losses "
+              f"{[round(x, 4) for x in losses]} against in-process "
+              f"{[round(x, 4) for x in in_process['losses']]} (largest relative difference "
+              f"{max(rel):.2e}, rtol "
+              f"{TRAINER_LOSS_RTOL}), launches {final['launches']} ({per_step} per step); step "
+              f"{final['step_ms']:.1f} ms in the worker against {in_process['step_ms']:.1f} ms "
+              f"in process (difference {final['step_ms'] - in_process['step_ms']:+.1f} ms); "
+              f"checkpoint saved in {final['save_s']:.1f} s, reloaded on the driver's card in "
+              f"{load_s:.1f} s: fixed-batch loss {reloaded:.6f} against the worker's "
+              f"{final['fixed_loss']:.6f} (relative {reload_rel:.2e}); fit() {fit_s:.1f} s: ok",
+              flush=True)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1288,6 +1516,7 @@ def main() -> int:
     A.reset_launch_counts()
     r = bench_model(model, BATCH, SEQ, TIMED_STEPS, H100_BF16_PEAK_FLOPS)
     launches = dict(A.LAUNCHES)
+    llama_in_process = r
     losses = r["losses"]
     check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1352,6 +1581,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 16. expert parallelism over data x expert processes, counted in each rank
     phase_expert(A, card)
+    torch.cuda.empty_cache()
+    # 17. the runtime: the card detected, tensors through the object store
+    phase_object_plane(card)
+    # 18. TorchTrainer at llama-1b in a GPU worker, counted in the worker
+    phase_trainer(A, card, llama_in_process)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.

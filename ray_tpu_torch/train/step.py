@@ -12,7 +12,7 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from .models.llama import causal_lm_loss
+from ..models.llama import causal_lm_loss
 
 LossFn = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]
 
