@@ -120,7 +120,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (rtol 1e-3) and fall, the launches are phase 5's per step, and the
    checkpoint reloaded into a fresh llama-1b on this card gives the
    worker's loss of a fixed batch (rtol 1e-5); the worker's step beside
-   phase 5's.
+   phase 5's;
+19. Data into TorchTrainer at llama-1b, one GPU worker: `ray_tpu_torch.data`
+   `from_numpy` of TIMED_STEPS + 1 blocks, each phase 5's batch, and a
+   `map_batches` adding `targets = roll(ids, -1)` in numpy, passed as
+   `datasets={"train": ds}`; the worker steps phase 5's model on
+   `iter_torch_batches(batch_size=BATCH, dtypes=torch.long)` (pinned host
+   memory, a non_blocking copy to the card): every batch on the card,
+   K1-K3 launched 2L/L/L per step in the worker, the losses within
+   TRAINER_LOSS_RTOL of phase 5's and falling; the Data-fed step beside
+   phase 5's and phase 18's, the host's wait for each next batch, the
+   host-to-device copy of one batch (ms, GB/s) and fit();
+20. collectives (`ray_tpu_torch.util.collective`): two actors of
+   `num_gpus=0.5`, both on the card, each with a 16 MiB CUDA tensor of
+   bf16 and then of float32: allreduce, allgather, reducescatter and
+   broadcast equal torch's reduction of the same inputs on the host, and
+   come back on the caller's card in its dtype; the ms of each op.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -209,6 +224,10 @@ TRAINER_LOSS_RTOL = 1e-3
 # The checkpoint reloaded on the driver's card against the worker's own
 # no-grad loss of the same batch.
 RELOAD_LOSS_RTOL = 1e-5
+# Phase 19 times the host-to-device copy of one batch over this many copies.
+H2D_REPEATS = 20
+# Phase 20: each rank's tensor for every collective op.
+COLLECTIVE_MIB = 16
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -1466,9 +1485,222 @@ def phase_trainer(A, card, in_process):
               f"{load_s:.1f} s: fixed-batch loss {reloaded:.6f} against the worker's "
               f"{final['fixed_loss']:.6f} (relative {reload_rel:.2e}); fit() {fit_s:.1f} s: ok",
               flush=True)
+        return final["step_ms"]
     finally:
         rt.shutdown()
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+def with_targets(batch):
+    """Phase 19's map_batches: the ids and `targets = roll(ids, -1)`, in
+    numpy, as `bench_model` makes its targets."""
+    import numpy as np
+
+    return {"ids": batch["item"], "targets": np.roll(batch["item"], -1, axis=1)}
+
+
+def data_trainer_loop(config):
+    """phase_data_trainer's loop, in a GPU worker of the runtime: phase 5's
+    llama-1b steps (a warm-up and TIMED_STEPS timed), each on the next
+    batch of `iter_torch_batches` over the Dataset the trainer passed in
+    `config["__datasets__"]`; then the host-to-device copy of one batch,
+    timed alone."""
+    import os
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.data.iterator import to_device
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+    from ray_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    optimizer = train.make_optimizer(model)
+    ds = config["__datasets__"]["train"]
+    A.reset_launch_counts()
+    losses, waits, devices = [], [], set()
+    batches = iter(ds.iter_torch_batches(batch_size=BATCH, dtypes=torch.long))
+    t_timed = None
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        waits.append(time.perf_counter() - t0)
+        devices.update(str(t.device) for t in batch.values())
+        losses.append(train.train_step(model, optimizer, batch["ids"], batch["targets"]))
+        if len(losses) == 1:  # the warm-up step, as bench_model's
+            float(losses[0])
+            t_timed = time.perf_counter()
+    float(losses[-1])
+    step_ms = (time.perf_counter() - t_timed) / (len(losses) - 1) * 1e3
+    launches = dict(A.LAUNCHES)
+    host = next(iter(ds.iter_batches(batch_size=BATCH)))
+    nbytes = sum(v.nbytes for v in host.values())
+    to_device(host, dtypes=torch.long)  # warm the pinned allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(H2D_REPEATS):
+        to_device(host, dtypes=torch.long)
+    torch.cuda.synchronize()
+    h2d_s = (time.perf_counter() - t0) / H2D_REPEATS
+    for step, loss in enumerate(losses):
+        train.report({"step": step, "loss": float(loss)})
+    train.report({"step_ms": step_ms, "launches": launches, "waits_ms": [w * 1e3 for w in waits],
+                  "devices": sorted(devices), "h2d_ms": h2d_s * 1e3, "batch_bytes": nbytes,
+                  "card": torch.cuda.get_device_name(),
+                  "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def phase_data_trainer(card, in_process, trainer_step_ms):
+    """Data -> TorchTrainer -> llama-1b: the Dataset built here, every
+    step's batch phase 5's, stepped in one GPU worker through
+    `iter_torch_batches`; held against phase 5's in-process run."""
+    import numpy as np
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import CONFIGS
+
+    cfg = CONFIGS["llama-1b"]
+    steps = TIMED_STEPS + 1
+    # bench_model's batch: the first draw of RandomState(0), every step.
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (BATCH, SEQ))
+    ds = rd.from_numpy([ids] * steps).map_batches(with_targets)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        t0 = time.perf_counter()
+        result = train.TorchTrainer(
+            data_trainer_loop,
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(storage_path=scratch),
+            datasets={"train": ds},
+        ).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        import shutil
+
+        shutil.rmtree(scratch, ignore_errors=True)
+    check(result.error is None, f"the Data-fed TorchTrainer failed: {result.error}")
+    history = result.metrics_history
+    losses = [m["loss"] for m in history if "loss" in m]
+    final = history[-1]
+    check(len(losses) == steps, f"the worker stepped on {len(losses)} batches, expected {steps}")
+    check(final["devices"] == ["cuda:0"], f"the worker's batches lay on {final['devices']}")
+    check(all(math.isfinite(x) for x in losses), f"Data-fed loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"Data-fed loss did not fall: {losses}")
+    layers = cfg.num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    for name, k in per_step.items():
+        check(final["launches"][name] == k * steps,
+              f"Data-fed trainer: {name} launched {final['launches'][name]} times in "
+              f"{steps} steps, expected {k * steps}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, in_process["losses"])]
+    check(max(rel) <= TRAINER_LOSS_RTOL,
+          f"Data-fed losses {losses} vs in-process {in_process['losses']}: relative {rel}")
+    waits = final["waits_ms"]
+    print(f"Data -> TorchTrainer llama-1b b{BATCH} s{SEQ} bf16, 1 GPU worker on {final['card']} "
+          f"(CUDA_VISIBLE_DEVICES={final['visible']}) of {card}: {steps} batches from "
+          f"iter_torch_batches on {final['devices']}; losses {[round(x, 4) for x in losses]} "
+          f"against in-process {[round(x, 4) for x in in_process['losses']]} (largest relative "
+          f"difference {max(rel):.2e}, rtol {TRAINER_LOSS_RTOL}), launches {final['launches']} "
+          f"({per_step} per step); step {final['step_ms']:.1f} ms against {in_process['step_ms']:.1f} "
+          f"in process (phase 5) and {trainer_step_ms:.1f} in phase 18's worker; the host's wait "
+          f"for each next batch {[round(w, 2) for w in waits]} ms; host-to-device copy of a "
+          f"{final['batch_bytes']} B batch {final['h2d_ms']:.3f} ms "
+          f"({final['batch_bytes'] / final['h2d_ms'] / 1e6:.3f} GB/s); fit() {fit_s:.1f} s: ok",
+          flush=True)
+
+
+class CollectiveMember:
+    """One rank of phase 20's collective group, an actor of the runtime."""
+
+    def __init__(self, rank: int):
+        from ray_tpu_torch.util import collective as col
+
+        self.rank = rank
+        col.init_collective_group(2, rank, group_name="chip_smoke")
+
+    def where(self):
+        import os
+
+        import torch
+
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.device_count(),
+                torch.cuda.get_device_name(0))
+
+    def run(self, dtype_name: str):
+        """Every op on this rank's COLLECTIVE_MIB tensor on the card, each
+        result held against torch's reduction of both ranks' inputs on
+        the host (the inputs are made on the host from their seeds)."""
+        import torch
+
+        from ray_tpu_torch.util import collective as col
+
+        dtype = getattr(torch, dtype_name)
+        n = COLLECTIVE_MIB * 2 ** 20 // torch.empty((), dtype=dtype).element_size()
+        inputs = [torch.randn(n, generator=torch.Generator().manual_seed(41 + r)).to(dtype)
+                  for r in range(2)]
+        x = inputs[self.rank].cuda()
+        total = torch.stack(inputs).sum(0)
+        want = {"allreduce": total, "allgather": inputs,
+                "reducescatter": total.tensor_split(2)[self.rank], "broadcast": inputs[0]}
+        calls = {"allreduce": lambda: col.allreduce(x, group_name="chip_smoke"),
+                 "allgather": lambda: col.allgather(x, group_name="chip_smoke"),
+                 "reducescatter": lambda: col.reducescatter(x, group_name="chip_smoke"),
+                 "broadcast": lambda: col.broadcast(x, src_rank=0, group_name="chip_smoke")}
+        col.allreduce(x[:1], group_name="chip_smoke")  # the coordinator's first tensor
+        out = {}
+        for op, call in calls.items():
+            col.barrier(group_name="chip_smoke")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got_list = got if isinstance(got, list) else [got]
+            want_list = want[op] if isinstance(want[op], list) else [want[op]]
+            out[op] = {
+                "ms": ms,
+                "placed": all(g.device == x.device and g.dtype == dtype for g in got_list),
+                "equal": len(got_list) == len(want_list) and all(
+                    torch.equal(g.cpu(), w) for g, w in zip(got_list, want_list)),
+            }
+        return out
+
+
+def phase_collectives(card):
+    """util.collective with CUDA tensors: two actors of num_gpus=0.5 share
+    the card; every op on a COLLECTIVE_MIB tensor of bf16 and of float32."""
+    import ray_tpu_torch as rt
+
+    member = rt.remote(num_gpus=0.5)(CollectiveMember)
+    members = [member.remote(r) for r in range(2)]
+    try:
+        seen = rt.get([m.where.remote() for m in members], timeout=300)
+        check(all(v == "0" and n == 1 for v, n, _ in seen),
+              f"the half-GPU members see {seen}")
+        for dtype in ("bfloat16", "float32"):
+            results = rt.get([m.run.remote(dtype) for m in members], timeout=300)
+            for rank, res in enumerate(results):
+                for op, r in res.items():
+                    check(r["equal"], f"collective {op} of {dtype} on rank {rank} differs from "
+                                      "torch's reduction on the host")
+                    check(r["placed"], f"collective {op} of {dtype} on rank {rank} did not "
+                                       "return on the caller's card and dtype")
+            ms = {op: max(res[op]["ms"] for res in results) for op in results[0]}
+            print(f"collectives on {card}: 2 actors of num_gpus=0.5 on {seen[0][2]} "
+                  f"(CUDA_VISIBLE_DEVICES={seen[0][0]} each), {COLLECTIVE_MIB} MiB of {dtype} "
+                  f"a rank, results equal to torch's on the host, on cuda:0 in {dtype}; ms "
+                  f"(slower rank) {', '.join(f'{op} {t:.1f}' for op, t in ms.items())}: ok",
+                  flush=True)
+    finally:
+        for m in members:
+            rt.kill(m)
 
 
 def main() -> int:
@@ -1585,7 +1817,17 @@ def main() -> int:
     # 17. the runtime: the card detected, tensors through the object store
     phase_object_plane(card)
     # 18. TorchTrainer at llama-1b in a GPU worker, counted in the worker
-    phase_trainer(A, card, llama_in_process)
+    trainer_step_ms = phase_trainer(A, card, llama_in_process)
+    import ray_tpu_torch as rt
+
+    rt.init()
+    try:
+        # 19. Data -> TorchTrainer -> llama-1b, counted in the worker
+        phase_data_trainer(card, llama_in_process, trainer_step_ms)
+        # 20. collectives with CUDA tensors between two actors on the card
+        phase_collectives(card)
+    finally:
+        rt.shutdown()
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.

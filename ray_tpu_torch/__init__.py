@@ -17,8 +17,11 @@ Mixtral; `profile` breaks a step's device time down by kernel. Slice 9
 adds the runtime itself — tasks, actors, the shared-memory object store
 (torch tensors through it, CUDA ones copied to the host), the GCS,
 raylets and placement groups, with one card per GPU worker
-(`_private`, `util`) — and Train on it (`train.TorchTrainer`). Its API
-mirrors the reference's `ray` package:
+(`_private`, `util`) — and Train on it (`train.TorchTrainer`). Slice 10
+adds Data (`data`, imported where used: a Dataset's batches reach the
+card through `iter_torch_batches`) and the out-of-graph collectives on
+torch tensors (`util.collective`). Its API mirrors the reference's `ray`
+package:
 
     import ray_tpu_torch
 

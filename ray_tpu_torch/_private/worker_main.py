@@ -347,6 +347,7 @@ class WorkerRuntime:
         self._method_group: Dict[str, str] = {}
         self._group_sems: Dict[str, Any] = {}  # async actors
         self._aio_loop: Optional[asyncio.AbstractEventLoop] = None
+        self._aio_lock = threading.Lock()
         self._done = threading.Event()
         self._done_batcher = _DoneBatcher(client)
         self._wid_hex = client.worker_id.hex()
@@ -724,16 +725,25 @@ class WorkerRuntime:
             spec.name = getattr(fn, "__name__", "task")
         return fn(*args, **kwargs)
 
+    def _start_aio_loop(self) -> None:
+        """The actor's one event loop, started on first use. Calls arrive
+        on several dispatch threads at once; without the lock two of them
+        could each start a loop, and an asyncio object made on one loop
+        (an Event shared by the calls of a collective round) would then
+        be awaited from the other."""
+        with self._aio_lock:
+            if self._aio_loop is None:
+                self._aio_loop = asyncio.new_event_loop()
+                threading.Thread(
+                    target=self._aio_loop.run_forever, name="actor-aio", daemon=True
+                ).start()
+
     def _submit_stream_async(self, spec: TaskSpec, origin=None):
         """Streaming call on an async-generator method: drive it as a
         task on the actor's event loop so the dispatch thread stays
         free (concurrent streams + ordinary async calls overlap, like
         any other async-actor method)."""
-        if self._aio_loop is None:
-            self._aio_loop = asyncio.new_event_loop()
-            threading.Thread(
-                target=self._aio_loop.run_forever, name="actor-aio", daemon=True
-            ).start()
+        self._start_aio_loop()
         tid = spec.task_id.binary()
         wid = self.client.worker_id.binary()
 
@@ -816,11 +826,7 @@ class WorkerRuntime:
         the dispatch thread — async actor calls execute concurrently
         (reference: fiber-based async actors, transport/fiber.h:17).
         Concurrency groups bound by asyncio.Semaphore per group."""
-        if self._aio_loop is None:
-            self._aio_loop = asyncio.new_event_loop()
-            threading.Thread(
-                target=self._aio_loop.run_forever, name="actor-aio", daemon=True
-            ).start()
+        self._start_aio_loop()
         group = spec.concurrency_group or self._method_group.get(
             spec.method_name
         )
@@ -945,11 +951,7 @@ class WorkerRuntime:
     def _drain_async_gen(self, agen):
         """Iterate an async generator from sync code on a private loop
         (streaming methods on async actors)."""
-        if self._aio_loop is None:
-            self._aio_loop = asyncio.new_event_loop()
-            threading.Thread(
-                target=self._aio_loop.run_forever, name="actor-aio", daemon=True
-            ).start()
+        self._start_aio_loop()
         while True:
             fut = asyncio.run_coroutine_threadsafe(
                 agen.__anext__(), self._aio_loop

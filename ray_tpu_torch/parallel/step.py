@@ -34,12 +34,15 @@ from .collectives import all_reduce_sum_
 BATCH_AXES = ("data", "fsdp")
 
 
-def shard_batch(ids: torch.Tensor, targets: torch.Tensor,
-                mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """This rank's block of global `ids` and `targets` [B, T]: rows split
-    over ("data", "fsdp") (data major), the sequence over "seq", both
-    contiguously, as the reference's P(("data", "fsdp"), "seq")."""
-    b, t = ids.shape
+def batch_slices(shape: Tuple[int, ...], mesh) -> Tuple[slice, slice]:
+    """The (rows, columns) of this rank's block of a global [B, T, ...]
+    batch: rows split over ("data", "fsdp") (data major), the sequence
+    over "seq", both contiguously, as the reference's P(("data", "fsdp"),
+    "seq")."""
+    if len(shape) < 2:
+        raise ValueError(f"a batch column of shape {tuple(shape)} has no "
+                         "sequence dim to split")
+    b, t = shape[:2]
     replicas = mesh["data"].size() * mesh["fsdp"].size()
     seq = mesh["seq"].size()
     if b % replicas or t % seq:
@@ -47,9 +50,16 @@ def shard_batch(ids: torch.Tensor, targets: torch.Tensor,
                          f"{replicas} replicas x {seq} sequence shards")
     row = mesh["data"].get_local_rank() * mesh["fsdp"].size() + mesh["fsdp"].get_local_rank()
     col = mesh["seq"].get_local_rank()
-    rows = slice(row * b // replicas, (row + 1) * b // replicas)
-    cols = slice(col * t // seq, (col + 1) * t // seq)
-    return ids[rows, cols], targets[rows, cols]
+    return (slice(row * b // replicas, (row + 1) * b // replicas),
+            slice(col * t // seq, (col + 1) * t // seq))
+
+
+def shard_batch(ids: torch.Tensor, targets: torch.Tensor,
+                mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's block of global `ids` and `targets` [B, T]
+    (`batch_slices`)."""
+    block = batch_slices(ids.shape, mesh)
+    return ids[block], targets[block]
 
 
 def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:

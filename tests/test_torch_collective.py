@@ -1,0 +1,295 @@
+"""The port's out-of-graph collectives (`ray_tpu_torch.util.collective`)
+against the reference's (`ray_tpu.util.collective`).
+
+tests/test_collective.py's cases on both runtimes; then every op of
+groups of 2 and 3 actors on inputs made from a seed: numpy inputs give
+what the reference gives, bit for bit; bfloat16 and float32 tensors give
+tensors of their dtype on their device, equal to torch's own reduction
+of the same inputs on the host. Last, phase 20's layout of
+`chip_smoke.py` on a node faked to one GPU: two `num_gpus=0.5` actors
+share the card and run the ops between them.
+
+Both runtimes run at once in this process (one module-scoped cluster of
+each, 4 CPUs apiece); every test has a deadline, and every `get` a
+timeout.
+"""
+import importlib
+import os
+import signal
+
+import numpy as np
+import pytest
+import torch
+
+import ray_tpu
+import ray_tpu_torch
+
+DEADLINE_S = 120
+GET_TIMEOUT_S = 60
+RUNTIMES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
+REDUCE_OPS = ("sum", "mean", "max", "min", "product")
+ROUNDS_AT_ONCE = 8
+TORCH_REDUCE = {
+    "sum": lambda s: s.sum(0), "mean": lambda s: s.mean(0), "max": lambda s: s.amax(0),
+    "min": lambda s: s.amin(0), "product": lambda s: s.prod(0),
+}
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    def expire(signum, frame):
+        pytest.fail(f"test passed its {DEADLINE_S} s deadline")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(DEADLINE_S)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
+
+
+@pytest.fixture(scope="module")
+def clusters():
+    """Both runtimes; the port's node faked to one GPU (phase 20's layout)."""
+    old = os.environ.get("RAY_TPU_TORCH_NUM_GPUS")
+    os.environ["RAY_TPU_TORCH_NUM_GPUS"] = "1"
+    try:
+        ray_tpu.init(num_cpus=4, ignore_reinit_error=True)
+        ray_tpu_torch.init(num_cpus=4, ignore_reinit_error=True)
+        yield
+    finally:
+        ray_tpu_torch.shutdown()
+        ray_tpu.shutdown()
+        if old is None:
+            os.environ.pop("RAY_TPU_TORCH_NUM_GPUS", None)
+        else:
+            os.environ["RAY_TPU_TORCH_NUM_GPUS"] = old
+
+
+def _collective(runtime):
+    return importlib.import_module(f"{runtime}.util.collective")
+
+
+# ----------------------------------------------- tests/test_collective.py
+
+
+class _Rank:
+    """One member of every group: an actor, so that the members of a
+    group run at once. A group of tasks can deadlock on both runtimes:
+    the head may queue one rank's task behind another's on the same
+    worker, where that one blocks in the collective forever."""
+
+    def __init__(self, runtime):
+        self.rt = importlib.import_module(runtime)
+        self.col = _collective(runtime)
+
+    def mirror(self, group, rank, world, value):
+        col = self.col
+        col.init_collective_group(world, rank, group_name=group)
+        reduced = col.allreduce(np.full((4,), value, np.float32), group_name=group)
+        gathered = col.allgather(np.array([rank], np.int32), group_name=group)
+        bcast = col.broadcast(np.array([42.0]) if rank == 0 else None, src_rank=0,
+                              group_name=group)
+        col.barrier(group_name=group)
+        shard = col.reducescatter(np.arange(4, dtype=np.float32) * (rank + 1), group_name=group)
+        return reduced.tolist(), [int(x[0]) for x in gathered], float(bcast[0]), shard.tolist()
+
+    def call_at(self, actor, at):
+        """Four calls of `actor.loop` from this process, sent at `at`."""
+        import time
+
+        time.sleep(max(0.0, at - time.time()))
+        refs = [actor.loop.remote() for _ in range(4)]
+        return self.rt.get(refs, timeout=GET_TIMEOUT_S)
+
+    def every_op(self, group, rank, world, kind, seed):
+        col = self.col
+        x = _input(rank, seed, kind)
+        col.init_collective_group(world, rank, group_name=group)
+        out = {f"allreduce_{op}": col.allreduce(x, group_name=group, op=op) for op in REDUCE_OPS}
+        out["allgather"] = col.allgather(x, group_name=group)
+        out["reducescatter"] = col.reducescatter(x, group_name=group)
+        out["broadcast"] = col.broadcast(x, src_rank=world - 1, group_name=group)
+        out["broadcast_none"] = col.broadcast(x if rank == 0 else None, src_rank=0,
+                                              group_name=group)
+        col.barrier(group_name=group)
+        return out
+
+    def leave(self, group):
+        self.col.destroy_collective_group(group)
+
+
+def _group(runtime, name, world):
+    """A fresh group name. On the reference, its coordinator is started
+    and called once before the members' first calls: the reference's
+    worker starts an async actor's event loop without a lock, so calls
+    that reach a fresh coordinator together can land on two loops and
+    hang the round (the port's worker holds a lock; see the last test)."""
+    if runtime == "ray_tpu":
+        col = _collective(runtime).collective
+        coordinator = ray_tpu.remote(col._GroupCoordinator).options(
+            name=f"__collective_{name}", get_if_exists=True).remote(world)
+        ray_tpu.get(coordinator.cleanup.remote("start the loop"), timeout=GET_TIMEOUT_S)
+    return name
+
+
+def _leave(ranks, runtime, group, world):
+    RUNTIMES[runtime].get([m.leave.remote(group) for m in ranks[runtime][:world]],
+                          timeout=GET_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def ranks(clusters):
+    """Three members on each runtime, shared by the module's groups."""
+    members = {name: [rt.remote(_Rank).remote(name) for _ in range(3)]
+               for name, rt in RUNTIMES.items()}
+    yield members
+    for name, handles in members.items():
+        for h in handles:
+            RUNTIMES[name].kill(h)
+
+
+@pytest.mark.parametrize("runtime", sorted(RUNTIMES))
+def test_collective_ops(ranks, runtime):
+    group = _group(runtime, "g1", 3)
+    results = RUNTIMES[runtime].get(
+        [m.mirror.remote(group, r, 3, float(r + 1)) for r, m in enumerate(ranks[runtime])],
+        timeout=GET_TIMEOUT_S)
+    _leave(ranks, runtime, group, 3)
+    # sum over ranks of arange(4) * (rank + 1) = [0, 6, 12, 18], split 2/1/1
+    for rank, (reduced, gathered, b, shard) in enumerate(results):
+        assert reduced == [6.0, 6.0, 6.0, 6.0]  # 1+2+3
+        assert gathered == [0, 1, 2]
+        assert b == 42.0
+        assert shard == [[0.0, 6.0], [12.0], [18.0]][rank]
+
+
+# ------------------------------------------------------- every op, every kind
+
+
+def _input(rank, seed, kind):
+    x = np.random.RandomState(seed + rank).randn(6, 4).astype(np.float32)
+    if kind == "numpy":
+        return x
+    return torch.from_numpy(x).to(getattr(torch, kind))
+
+
+def _run(ranks, runtime, world, kind, seed):
+    group = _group(runtime, f"every_{kind}_{world}_{seed}", world)
+    out = RUNTIMES[runtime].get(
+        [m.every_op.remote(group, r, world, kind, seed)
+         for r, m in enumerate(ranks[runtime][:world])], timeout=GET_TIMEOUT_S)
+    _leave(ranks, runtime, group, world)
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_numpy_inputs_give_the_references_results(ranks, world):
+    want = _run(ranks, "ray_tpu", world, "numpy", seed=world)
+    got = _run(ranks, "ray_tpu_torch", world, "numpy", seed=world)
+    for w, g in zip(want, got):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            ws, gs = (w[k], g[k]) if isinstance(w[k], list) else ([w[k]], [g[k]])
+            for a, b in zip(ws, gs):
+                assert isinstance(b, np.ndarray) and b.dtype == a.dtype, k
+                np.testing.assert_array_equal(b, a, err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float32"])
+@pytest.mark.parametrize("world", [2, 3])
+def test_tensor_inputs_give_tensors_of_their_dtype(ranks, world, kind):
+    seed = 10 + world
+    got = _run(ranks, "ray_tpu_torch", world, kind, seed)
+    xs = [_input(r, seed, kind) for r in range(world)]
+    stacked = torch.stack(xs)
+    for rank, out in enumerate(got):
+        for op in REDUCE_OPS:
+            t = out[f"allreduce_{op}"]
+            assert isinstance(t, torch.Tensor) and t.dtype == xs[0].dtype and t.device.type == "cpu"
+            assert torch.equal(t, TORCH_REDUCE[op](stacked)), op
+        assert all(torch.equal(a, b) for a, b in zip(out["allgather"], xs))
+        assert all(a.dtype == xs[0].dtype for a in out["allgather"])
+        assert torch.equal(out["reducescatter"],
+                           torch.tensor_split(stacked.sum(0), world, dim=0)[rank])
+        assert torch.equal(out["broadcast"], xs[-1]) and out["broadcast"].dtype == xs[0].dtype
+        assert torch.equal(out["broadcast_none"], xs[0])
+    if kind == "float32":
+        # the reference's numpy reductions of the same values, to float32
+        # rounding (torch and numpy may add in another order)
+        want = _run(ranks, "ray_tpu", world, "numpy", seed)
+        for w, g in zip(want, got):
+            for op in REDUCE_OPS:
+                np.testing.assert_allclose(g[f"allreduce_{op}"].numpy(), w[f"allreduce_{op}"],
+                                           rtol=1e-6, atol=1e-6)
+
+
+def test_unknown_backend_raises(clusters):
+    col = _collective("ray_tpu_torch")
+    with pytest.raises(ValueError, match="nccl"):
+        col.init_collective_group(1, 0, backend="nccl", group_name="bad")
+
+
+# --------------------------------------------- phase 20's layout, on a fake GPU
+
+
+def test_two_half_gpu_actors_share_the_card_and_reduce(clusters):
+    """The runtime grants num_gpus=0.5 to two actors at once on a node of
+    one GPU, and each sees the card (CUDA_VISIBLE_DEVICES "0"); a bf16
+    allreduce and reducescatter between them equal torch's on the host."""
+    rt = ray_tpu_torch
+    assert rt.cluster_resources().get("GPU") == 1.0
+
+    @rt.remote(num_gpus=0.5)
+    class Member:
+        def __init__(self, rank):
+            from ray_tpu_torch.util import collective as col
+
+            self.rank = rank
+            col.init_collective_group(2, rank, group_name="half")
+
+        def visible(self):
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        def reduce(self, x):
+            from ray_tpu_torch.util import collective as col
+
+            return (col.allreduce(x, group_name="half"),
+                    col.reducescatter(x, group_name="half"))
+
+    members = [Member.remote(r) for r in range(2)]
+    assert rt.get([m.visible.remote() for m in members], timeout=GET_TIMEOUT_S) == ["0", "0"]
+    xs = [_input(r, 30, "bfloat16") for r in range(2)]
+    got = rt.get([m.reduce.remote(x) for m, x in zip(members, xs)], timeout=GET_TIMEOUT_S)
+    total = torch.stack(xs).sum(0)
+    for rank, (reduced, shard) in enumerate(got):
+        assert reduced.dtype == torch.bfloat16 and torch.equal(reduced, total)
+        assert torch.equal(shard, total.tensor_split(2)[rank])
+    for m in members:
+        rt.kill(m)
+
+
+def test_an_async_actor_runs_every_call_on_its_one_event_loop(ranks):
+    """Calls that reach a fresh async actor together, from several
+    processes, all run on its one event loop. The coordinator's
+    asyncio.Event is made by one call of a round and awaited by the
+    others; a second loop, started by a call on another dispatch thread,
+    made those waits fail ("bound to a different event loop") until the
+    port's worker started its loop under a lock."""
+    import time
+
+    @ray_tpu_torch.remote
+    class Loops:
+        async def loop(self):
+            import asyncio
+
+            await asyncio.sleep(0.05)
+            return id(asyncio.get_running_loop())
+
+    members = ranks["ray_tpu_torch"]
+    for _ in range(ROUNDS_AT_ONCE):
+        actor = Loops.remote()
+        at = time.time() + 0.5
+        loops = ray_tpu_torch.get([m.call_at.remote(actor, at) for m in members],
+                                  timeout=GET_TIMEOUT_S)
+        ray_tpu_torch.kill(actor)
+        assert len({x for xs in loops for x in xs}) == 1, loops

@@ -5,7 +5,9 @@ persistence, the error surfacing) and a restart from the last
 checkpoint; `save_pytree`/`load_pytree` on torch.distributed.checkpoint;
 two gloo workers joined by the KV rendezvous; and llama-tiny trained for
 three AdamW steps from the same flax parameters through both trainers,
-jax in the reference's worker and torch in the port's.
+jax in the reference's worker and torch in the port's; and llama-tiny
+fed by the port's Data module through `datasets=`, against the
+reference's `iter_jax_batches` and the same steps in this process.
 
 On this CPU every loop asks for the CPU (`use_gpu=False`, `device="cpu"`);
 each test has a deadline after which it fails instead of hanging.
@@ -34,6 +36,8 @@ DEADLINE_S = 180
 # (tests/test_torch_llama.py's F32_TOL).
 F32_TOL = 1e-4
 PARITY_STEPS = 3
+# The Data-fed run: one block of DATA_BATCH x DATA_SEQ ids a step.
+DATA_STEPS, DATA_BATCH, DATA_SEQ = 3, 2, 32
 
 
 @pytest.fixture(autouse=True)
@@ -220,6 +224,80 @@ class TestOnOneCluster:
         with torch.no_grad():
             loss = float(causal_lm_loss(fresh(fixed), fixed.roll(-1, 1)))
         assert loss == pytest.approx(result.metrics["fixed_loss"], rel=1e-5)
+
+
+    def test_data_fed_llama_tiny_matches_the_reference_batches_and_the_in_process_steps(
+            self, ray4):
+        """Phase 19 of chip_smoke.py at llama-tiny on the CPU: a Dataset
+        (`from_numpy`, one block a step, `map_batches` adding the rolled
+        targets) given to the trainer as `datasets={"train": ds}`; the
+        worker reads `config["__datasets__"]["train"]` and steps on
+        `iter_torch_batches(device="cpu", dtypes=torch.long)`. Its batches
+        equal, value for value, what the reference's `iter_jax_batches`
+        yields for the same pipeline (jax holds them in int32, x64 being
+        off), and its losses equal the same steps run here."""
+        import ray_tpu
+        from ray_tpu import data as jrd
+
+        from ray_tpu_torch import data as trd
+        from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+        from ray_tpu_torch.train import make_optimizer, train_step
+
+        x = np.random.RandomState(0).randint(0, 512, (DATA_STEPS * DATA_BATCH, DATA_SEQ))
+        blocks = [x[i * DATA_BATCH:(i + 1) * DATA_BATCH] for i in range(DATA_STEPS)]
+
+        def with_targets(b):
+            return {"ids": b["item"], "targets": np.roll(b["item"], -1, axis=1)}
+
+        def loop(config):
+            import torch
+
+            from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+            from ray_tpu_torch.train import make_optimizer, train_step
+
+            torch.set_num_threads(1)
+            model = LlamaForCausalLM(CONFIGS["llama-tiny"], device="cpu")
+            opt = make_optimizer(model)
+            for b in config["__datasets__"]["train"].iter_torch_batches(
+                    batch_size=config["batch"], device="cpu", dtypes=torch.long):
+                loss = train_step(model, opt, b["ids"], b["targets"])
+                train.report({"loss": float(loss), "ids": b["ids"].numpy(),
+                              "targets": b["targets"].numpy(),
+                              "devices": sorted({t.device.type for t in b.values()}),
+                              "dtypes": sorted({str(t.dtype) for t in b.values()})})
+
+        ds = trd.from_numpy(blocks).map_batches(with_targets)
+        result = _fit(loop, ray4, train_loop_config={"batch": DATA_BATCH},
+                      datasets={"train": ds})
+        assert result.error is None
+        history = result.metrics_history
+        assert len(history) == DATA_STEPS
+        assert all(m["devices"] == ["cpu"] and m["dtypes"] == ["torch.int64"] for m in history)
+
+        ray_tpu.init(num_cpus=2, ignore_reinit_error=True)
+        try:
+            want = [{k: np.asarray(v) for k, v in b.items()} for b in
+                    jrd.from_numpy(blocks).map_batches(with_targets)
+                    .iter_jax_batches(batch_size=DATA_BATCH)]
+        finally:
+            ray_tpu.shutdown()
+        assert len(want) == DATA_STEPS
+        for m, w in zip(history, want):
+            for k in ("ids", "targets"):
+                assert w[k].dtype == np.int32
+                np.testing.assert_array_equal(m[k], w[k].astype(np.int64))
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            model = LlamaForCausalLM(CONFIGS["llama-tiny"], device="cpu")
+            opt = make_optimizer(model)
+            losses = [float(train_step(model, opt, torch.from_numpy(w["ids"].astype(np.int64)),
+                                       torch.from_numpy(w["targets"].astype(np.int64))))
+                      for w in want]
+        finally:
+            torch.set_num_threads(threads)
+        assert [m["loss"] for m in history] == losses
 
 
 def test_worker_that_holds_a_gpu_but_sees_none_fails(monkeypatch, tmp_path):
