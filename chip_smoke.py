@@ -135,7 +135,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    `num_gpus=0.5`, both on the card, each with a 16 MiB CUDA tensor of
    bf16 and then of float32: allreduce, allgather, reducescatter and
    broadcast equal torch's reduction of the same inputs on the host, and
-   come back on the caller's card in its dtype; the ms of each op.
+   come back on the caller's card in its dtype; the ms of each op;
+21. Tune (`ray_tpu_torch.tune`): a `Tuner` over a `TorchTrainer` of one
+   GPU worker, a grid of two learning rates (`make_optimizer`'s, phase
+   5's, and TUNE_OTHER_LR), two trials at once that queue on the card
+   through their placement groups; each trial's worker runs phase 5's
+   llama-1b (the same model, seed and batch) for a warm-up and
+   TUNE_STEPS timed steps with K1-K3 counted in the worker: no trial
+   errs, every trial launches 2L/L/L per step, the trial at phase 5's
+   rate gives phase 5's losses of the same steps (TRAINER_LOSS_RTOL),
+   the other finite losses that differ after the first step; each
+   trial's losses, launches, step, its worker's wall seconds, and the
+   wait between the first trial's worker ending and the second's
+   starting;
+22. RLlib PPO (`ray_tpu_torch.rllib`) with one learner of one GPU
+   (`num_learners=1, num_gpus_per_learner=1`) at tests/test_rllib.py's
+   settings: the learner on `cuda`; one update of the card learner and of
+   a CPU learner from the same start weights on the same batch (built by
+   the CPU learner), every metric and updated weight within
+   PPO_CARD_ATOL; the update's ms per minibatch on each. Then the
+   default: a local learner with `num_gpus_per_learner` unset is on the
+   card and holds the same limit, and a learner actor would take one
+   card; the same update with TF32 matmuls is printed as the control. Where gymnasium
+   is installed, the batch is sampled from CartPole-v1 by the CPU env
+   runner, and then up to 20 iterations run with the reference test's
+   settings: each iteration's sample ms and `episode_return_mean`, every
+   loss finite, and the best return at least the reference's 80. Where
+   it is not installed, the batch is built without an env from
+   CartPole's shapes, and the phase says so.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -228,6 +255,18 @@ RELOAD_LOSS_RTOL = 1e-5
 H2D_REPEATS = 20
 # Phase 20: each rank's tensor for every collective op.
 COLLECTIVE_MIB = 16
+# Phase 21: each trial's timed steps after its warm-up (phase 5 times
+# TIMED_STEPS), and the grid's second learning rate (the first is
+# make_optimizer's, phase 5's).
+TUNE_STEPS, TUNE_OTHER_LR = 2, 1e-3
+# Phase 22: the card learner against the CPU learner after one update of
+# 8 epochs of 15 minibatches (120 Adam steps): float32 on both, sums in
+# another order on each device (about 1e-7 in the weights and 1e-6 in the
+# metrics on the H100). The same update with TF32 matmuls is printed
+# beside it as the control this limit must tell apart.
+# tests/test_rllib.py's PPO settings, threshold and budget.
+PPO_CARD_ATOL = 1e-5
+PPO_THRESHOLD, PPO_ITERATIONS = 80.0, 20
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -1703,6 +1742,286 @@ def phase_collectives(card):
             rt.kill(m)
 
 
+def tune_trainer_loop(config):
+    """phase_tune's loop, in each trial's GPU worker: phase 5's llama-1b
+    steps (`bench_model`'s model, seed, batch and optimizer) at the trial's
+    learning rate, K1-K3 counted here."""
+    import os
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+    from ray_tpu_torch.ops import attention as A
+
+    started = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    optimizer = train.make_optimizer(model)
+    for group in optimizer.param_groups:
+        group["lr"] = config["lr"]
+    ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (BATCH, SEQ)),
+                          dtype=torch.long, device="cuda")
+    targets = torch.roll(ids, -1, dims=1)
+    A.reset_launch_counts()
+    losses, dt = train.timed_steps(lambda: train.train_step(model, optimizer, ids, targets),
+                                   TUNE_STEPS)
+    train.report({"losses": losses, "launches": dict(A.LAUNCHES),
+                  "step_ms": dt / TUNE_STEPS * 1e3, "started": started, "ended": time.time(),
+                  "card": torch.cuda.get_device_name(),
+                  "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+
+def phase_tune(card, in_process):
+    """A Tuner over a one-GPU TorchTrainer at llama-1b: two learning rates,
+    two trials at once queueing on the card; held against phase 5."""
+    import shutil
+
+    import torch
+
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models.llama import CONFIGS
+
+    lr = train.make_optimizer(torch.nn.Linear(1, 1)).defaults["lr"]
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        t0 = time.time()
+        results = tune.Tuner(
+            train.TorchTrainer(
+                tune_trainer_loop,
+                scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=train.RunConfig(storage_path=os.path.join(scratch, "trainer"))),
+            param_space={"lr": tune.grid_search([lr, TUNE_OTHER_LR])},
+            tune_config=tune.TuneConfig(metric="step_ms", mode="min", max_concurrent_trials=2),
+            run_config=train.RunConfig(storage_path=scratch, name="tune"),
+        ).fit()
+        fit_s = time.time() - t0
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    check(not results.errors, f"Tune trials failed: {results.errors}")
+    trials = sorted((r.metrics for r in results.results), key=lambda m: m["started"])
+    check(len(trials) == 2, f"the Tuner ran {len(trials)} trials")
+    layers = CONFIGS["llama-1b"].num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    steps = TUNE_STEPS + 1
+    want = in_process["losses"][:steps]
+    by_lr = {r.config["lr"]: r.metrics for r in results.results}
+    for trial_lr, m in by_lr.items():
+        losses = m["losses"]
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"trial at lr {trial_lr}: losses {losses}")
+        check(m["visible"] == "0", f"trial at lr {trial_lr}: its worker sees {m['visible']!r}")
+        for name, k in per_step.items():
+            check(m["launches"][name] == k * steps,
+                  f"trial at lr {trial_lr}: {name} launched {m['launches'][name]} times in "
+                  f"{steps} steps, expected {k * steps}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(by_lr[lr]["losses"], want)]
+    check(max(rel) <= TRAINER_LOSS_RTOL,
+          f"the trial at phase 5's lr {lr}: losses {by_lr[lr]['losses']} vs phase 5's {want}")
+    other = by_lr[TUNE_OTHER_LR]["losses"]
+    other_rel = [abs(a - b) / abs(b) for a, b in zip(other[1:], want[1:])]
+    check(min(other_rel) > TRAINER_LOSS_RTOL,
+          f"the trial at lr {TUNE_OTHER_LR}: losses {other} do not differ from phase 5's {want}")
+    wait = trials[1]["started"] - trials[0]["ended"]
+    for trial_lr, m in sorted(by_lr.items()):
+        print(f"Tune trial lr {trial_lr:g} (1 GPU worker on {m['card']}, "
+              f"CUDA_VISIBLE_DEVICES={m['visible']}): losses {[round(x, 4) for x in m['losses']]}"
+              f", launches {m['launches']} ({per_step} per step), step {m['step_ms']:.1f} ms, "
+              f"its worker's loop {m['ended'] - m['started']:.1f} s, started "
+              f"{m['started'] - t0:.1f} s after fit() began", flush=True)
+    print(f"Tune llama-1b b{BATCH} s{SEQ} bf16 on {card}: 2 trials, max_concurrent_trials 2, "
+          f"queued on the one card; the trial at phase 5's lr {lr:g} against phase 5's losses "
+          f"{[round(x, 4) for x in want]} (largest relative difference {max(rel):.2e}, rtol "
+          f"{TRAINER_LOSS_RTOL}); the trial at lr {TUNE_OTHER_LR:g} differs after step 0 (by "
+          f"{min(other_rel):.2e} at least); the second trial's worker started {wait:.1f} s "
+          f"after the first's ended; fit() {fit_s:.1f} s: ok", flush=True)
+
+
+def cartpole_episodes(steps: int, seed: int):
+    """Finished episodes of CartPole-v1's shapes (4 floats an observation,
+    2 actions, reward 1) from RandomState(seed), `steps` steps in all:
+    phase 22's batches where gymnasium, and so CartPole, is absent."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env.episode import SingleAgentEpisode
+
+    rng = np.random.RandomState(seed)
+    episodes, left = [], steps
+    while left:
+        length = min(left, int(rng.randint(8, 200)))
+        ep = SingleAgentEpisode(initial_observation=rng.randn(4).astype(np.float32))
+        for t in range(length):
+            ep.add_env_step(rng.randn(4).astype(np.float32), int(rng.randint(2)), 1.0,
+                            terminated=t == length - 1,
+                            extra_model_outputs={"action_logp": np.float32(-rng.rand())})
+        episodes.append(ep.finalize())
+        left -= length
+    return episodes
+
+
+def phase_ppo(card):
+    """PPO with one learner of one GPU: the learner on the card, its first
+    update against a CPU learner's from the same start weights on the same
+    batch, then (where gymnasium is installed) the reference test's
+    CartPole run."""
+    from types import SimpleNamespace
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core.learner_group import LearnerGroup, _gpus_per_learner
+    from ray_tpu_torch.rllib.core.rl_module import DiscretePolicyModule, RLModuleSpec
+
+    try:
+        import gymnasium  # noqa: F401
+        have_env = True
+    except ImportError:
+        have_env = False
+    def settings():
+        return (PPOConfig()
+                .training(train_batch_size=2000, minibatch_size=128, num_epochs=8, lr=5e-4)
+                .debugging(seed=0))
+
+    config = settings().learners(num_learners=1, num_gpus_per_learner=1)
+    algo = None
+    if have_env:
+        config.environment("CartPole-v1").env_runners(num_env_runners=0,
+                                                      num_envs_per_env_runner=8)
+        algo = config.build()
+        group, spec = algo.learner_group, algo._module_spec
+        episodes = algo.env_runner_group.sample(num_timesteps=config.train_batch_size)
+        source = "sampled by the CPU env runner from CartPole-v1"
+    else:
+        spec = RLModuleSpec(module_class=DiscretePolicyModule,
+                            observation_space=SimpleNamespace(shape=(4,)),
+                            action_space=SimpleNamespace(n=2, shape=()))
+        group = LearnerGroup(learner_cls=PPOLearner, module_spec=spec,
+                             config=config.learner_config())
+        episodes = cartpole_episodes(config.train_batch_size, seed=0)
+        source = ("built without an env (gymnasium is not installed here): CartPole's shapes "
+                  "from RandomState(0)")
+    try:
+        (learner,) = group._actors
+        device = rt.get(learner.device.remote(), timeout=300)
+        check(device.startswith("cuda"), f"the PPO learner is on {device}")
+        start = group.get_state()
+
+        # The card learner against a CPU learner: same start weights, batch
+        # and minibatch permutations (the same numpy seed).
+        cpu_config = config.copy().learners(num_gpus_per_learner=0).learner_config()
+        cpu = PPOLearner(module_spec=spec, config=cpu_config)
+        cpu.build()
+        cpu.set_weights(start["params"])
+        batch = cpu.build_batch(episodes)
+        minibatches = config.num_epochs * (len(batch["obs"]) // config.minibatch_size)
+        t0 = time.perf_counter()
+        want = cpu.update({k: v.copy() for k, v in batch.items()})
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / minibatches
+        t0 = time.perf_counter()
+        got = group.update_from_batch(batch)
+        card_ms = (time.perf_counter() - t0) * 1e3 / minibatches
+        check(all(math.isfinite(v) for v in got.values()), f"card learner metrics {got}")
+        metric_err = max(abs(got[k] - want[k]) for k in want)
+        check(sorted(got) == sorted(want) and metric_err <= PPO_CARD_ATOL,
+              f"card learner metrics {got} vs the CPU learner's {want}")
+        got_w, want_w = group.get_weights(), cpu.get_weights()
+        weight_err = max(float((got_w[k] - want_w[k]).abs().max()) for k in want_w)
+        check(weight_err <= PPO_CARD_ATOL,
+              f"card learner weights differ from the CPU learner's by {weight_err:.2e}")
+
+        # The default, in this process: num_gpus_per_learner unset puts a
+        # local learner on the card, and a learner actor would take one.
+        # Its update from the same start on the same batch, then the same
+        # with TF32 matmuls: the control PPO_CARD_ATOL must tell apart.
+        check(_gpus_per_learner(None, 1) == 1, "a default learner actor asks for no card")
+
+        def default_update(tf32: bool):
+            learner = PPOLearner(module_spec=spec, config=settings().learner_config())
+            learner.build()
+            learner.set_weights(start["params"])
+            old = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                out = learner.update({k: v.copy() for k, v in batch.items()})
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = old
+            w = learner.get_weights()
+            return (learner.device, max(abs(out[k] - want[k]) for k in want),
+                    max(float((w[k] - want_w[k]).abs().max()) for k in want_w))
+
+        default_device, default_metric_err, default_weight_err = default_update(False)
+        _, tf32_metric_err, tf32_weight_err = default_update(True)
+        check(default_device.type == "cuda",
+              f"the default local PPO learner is on {default_device}")
+        check(max(default_metric_err, default_weight_err) <= PPO_CARD_ATOL,
+              f"the default learner differs from the CPU learner by {default_metric_err:.2e} "
+              f"(metrics), {default_weight_err:.2e} (weights)")
+        print(f"PPO default learner (num_gpus_per_learner unset) on {default_device}, and a "
+              f"learner actor asks for 1 card: from the CPU learner's start weights on its batch, "
+              f"largest metric difference {default_metric_err:.2e}, weight difference "
+              f"{default_weight_err:.2e} (atol {PPO_CARD_ATOL}); the control with TF32 matmuls: "
+              f"metric {tf32_metric_err:.2e}, weight {tf32_weight_err:.2e}: ok", flush=True)
+        warm_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = group.update_from_batch(batch)
+            warm_ms.append((time.perf_counter() - t0) * 1e3 / minibatches)
+            check(all(math.isfinite(v) for v in again.values()), f"card learner metrics {again}")
+        print(f"PPO learner on {device} of {card}: one update ({minibatches} minibatches of "
+              f"{config.minibatch_size}) from the CPU learner's start weights on its batch of "
+              f"{len(batch['obs'])} steps {source}: total_loss {got['total_loss']:.6f} against "
+              f"{want['total_loss']:.6f}, largest metric difference {metric_err:.2e}, weight "
+              f"difference {weight_err:.2e} (atol {PPO_CARD_ATOL}); ms per minibatch on the card "
+              f"{card_ms:.2f} (then {', '.join(f'{x:.2f}' for x in warm_ms)}; each update's round "
+              f"trip included), on the CPU {cpu_ms:.2f}: ok", flush=True)
+        if not have_env:
+            print("PPO CartPole-v1 learning run: not run, gymnasium is not installed on this "
+                  "machine (the learner's update was held on batches built without an env)",
+                  flush=True)
+            return
+
+        # The reference test's learning run, from the start state again.
+        group.set_state(start)
+        algo.env_runner_group.sync_weights(start["params"])
+        runners = algo.env_runner_group
+        sample, sample_ms = runners.sample, []
+
+        def timed_sample(**kwargs):
+            t0 = time.perf_counter()
+            out = sample(**kwargs)
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        runners.sample = timed_sample
+        best, returns = 0.0, []
+        t0 = time.perf_counter()
+        for _ in range(PPO_ITERATIONS):
+            r = algo.train()
+            check(all(math.isfinite(v) for v in r["learners"].values()),
+                  f"PPO learner metrics not finite: {r['learners']}")
+            returns.append(r["episode_return_mean"])
+            best = max(best, r["episode_return_mean"])
+            if best >= PPO_THRESHOLD:
+                break
+        train_s = time.perf_counter() - t0
+        check(best >= PPO_THRESHOLD, f"PPO failed to learn CartPole: best={best}")
+        print(f"PPO CartPole-v1 (1 learner on {device}, 1 CPU env runner of 8 envs, "
+              f"{config.train_batch_size} steps an iteration): episode_return_mean per iteration "
+              f"{[round(x, 2) for x in returns]}, best {best:.2f} >= {PPO_THRESHOLD} in "
+              f"{len(returns)} of {PPO_ITERATIONS} iterations; sample ms per iteration "
+              f"{[round(x, 1) for x in sample_ms]}; {train_s:.1f} s: ok", flush=True)
+    finally:
+        if algo is not None:
+            algo.stop()
+        else:
+            group.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -1733,6 +2052,13 @@ def main() -> int:
     libs = _build.build()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     report_build(_build)
+    try:
+        import gymnasium
+
+        print(f"gymnasium {gymnasium.__version__} (phase 22's CartPole)", flush=True)
+    except ImportError:
+        print("gymnasium is not installed: phase 22 holds the learner on batches built "
+              "without an env", flush=True)
 
     # 3. attention kernels
     numbers = phase_kernels(A)
@@ -1826,6 +2152,10 @@ def main() -> int:
         phase_data_trainer(card, llama_in_process, trainer_step_ms)
         # 20. collectives with CUDA tensors between two actors on the card
         phase_collectives(card)
+        # 21. Tune: two trials of llama-1b queued on the card, counted in each worker
+        phase_tune(card, llama_in_process)
+        # 22. RLlib PPO with its learner on the card
+        phase_ppo(card)
     finally:
         rt.shutdown()
 

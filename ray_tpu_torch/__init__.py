@@ -20,8 +20,10 @@ raylets and placement groups, with one card per GPU worker
 (`_private`, `util`) — and Train on it (`train.TorchTrainer`). Slice 10
 adds Data (`data`, imported where used: a Dataset's batches reach the
 card through `iter_torch_batches`) and the out-of-graph collectives on
-torch tensors (`util.collective`). Its API mirrors the reference's `ray`
-package:
+torch tensors (`util.collective`). Slice 11 adds Tune (`tune`, whose
+`Tuner` wraps a `TorchTrainer`) and RLlib as far as PPO (`rllib`, its
+learner on the card unless `num_gpus_per_learner=0` asks for the CPU),
+both imported where used. Its API mirrors the reference's `ray` package:
 
     import ray_tpu_torch
 

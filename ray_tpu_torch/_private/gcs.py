@@ -41,6 +41,7 @@ import subprocess
 import sys
 import threading
 import time
+import uuid
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from multiprocessing.connection import Listener
@@ -3863,10 +3864,13 @@ class GcsServer:
             return  # validates fine now: stale/racy report
         except (OSError, SpillCorruptionError):
             pass
-        try:
-            os.unlink(path)
-        except OSError:
-            pass
+        # The entry stops naming the file before the file goes, so a
+        # reader that finds the path finds the file too (the reference
+        # unlinks first, and a reader can see a path with no file). The
+        # file is moved to a name of its own under the lock and unlinked
+        # there after it: a spill of the object reconstructed meanwhile
+        # writes the same path, and that new file stays.
+        tombstone = f"{path}.corrupt-{uuid.uuid4().hex}"
         with self._lock:
             entry = self.objects.get(oid)
             if entry is None or entry.spilled_path != path:
@@ -3877,6 +3881,15 @@ class GcsServer:
                 self._notify_object(entry)
             self._version += 1
             self._table_versions["objects"] += 1
+            try:
+                os.rename(path, tombstone)
+            except OSError:
+                tombstone = None
+        if tombstone is not None:
+            try:
+                os.unlink(tombstone)
+            except OSError:
+                pass
         if _events.enabled():
             _events.record(
                 _events.REFS, ObjectID(oid).hex()[:12], "SPILL_FAIL",

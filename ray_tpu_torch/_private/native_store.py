@@ -139,6 +139,7 @@ class PoolStore:
             raise RuntimeError("native store library unavailable")
         self.name = name
         self._lib = lib
+        self._lock = threading.Lock()
         if create:
             self._h = lib.store_create(
                 name.encode(), pool_bytes or default_pool_bytes(), max_objects,
@@ -167,52 +168,68 @@ class PoolStore:
         self.buf = self._shm.buf
 
     # ------------------------------------------------------------ objects
+    # Every call into the library holds self._lock, as close() does to
+    # detach: a call that checked the handle could otherwise run on a
+    # store that close() had already freed (the reference checks without
+    # a lock). Payloads are copied through the returned views, outside it.
     def create(self, object_id: bytes, size: int) -> Optional[memoryview]:
-        """Returns a writable view of the payload, or None (full/exists)."""
-        if not self._h:
-            return None
+        """Returns a writable view of the payload, or None (full/exists/closed)."""
         err = ctypes.c_int32(0)
-        off = self._lib.store_create_object(
-            self._h, object_id, size, ctypes.byref(err)
-        )
-        if off == 0:
-            return None
-        return self.buf[off : off + size]
+        with self._lock:
+            if not self._h:
+                return None
+            off = self._lib.store_create_object(
+                self._h, object_id, size, ctypes.byref(err)
+            )
+            if off == 0:
+                return None
+            return self.buf[off : off + size]
 
     def seal(self, object_id: bytes) -> bool:
-        return bool(self._h) and self._lib.store_seal(self._h, object_id) == 0
+        with self._lock:
+            return bool(self._h) and self._lib.store_seal(self._h, object_id) == 0
 
     def get(self, object_id: bytes) -> Optional[memoryview]:
         """Read-side view; caller must release() when done with it."""
-        if not self._h:
-            return None
         off = ctypes.c_uint64(0)
         size = ctypes.c_uint64(0)
-        rc = self._lib.store_get(
-            self._h, object_id, ctypes.byref(off), ctypes.byref(size)
-        )
-        if rc != 0:
-            return None
-        return self.buf[off.value : off.value + size.value]
+        with self._lock:
+            if not self._h:
+                return None
+            rc = self._lib.store_get(
+                self._h, object_id, ctypes.byref(off), ctypes.byref(size)
+            )
+            if rc != 0:
+                return None
+            return self.buf[off.value : off.value + size.value]
 
     def contains(self, object_id: bytes) -> bool:
-        return bool(self._h) and self._lib.store_contains(self._h, object_id) == 1
+        with self._lock:
+            return bool(self._h) and self._lib.store_contains(self._h, object_id) == 1
 
     def release(self, object_id: bytes) -> None:
-        if self._h:
-            self._lib.store_release(self._h, object_id)
+        with self._lock:
+            if self._h:
+                self._lib.store_release(self._h, object_id)
 
     def delete(self, object_id: bytes) -> None:
-        if self._h:
-            self._lib.store_delete(self._h, object_id)
+        with self._lock:
+            if self._h:
+                self._lib.store_delete(self._h, object_id)
+
+    def _call(self, fn, n: int):
+        """`fn(handle, out)` into n uint64s; after close() it raises, as
+        a monitor thread racing shutdown must see an exception, not a
+        native crash."""
+        out = (ctypes.c_uint64 * n)()
+        with self._lock:
+            if not self._h:
+                raise RuntimeError("store closed")
+            fn(self._h, out)
+        return out
 
     def stats(self) -> dict:
-        # Detached-handle calls (e.g. a monitor thread racing shutdown)
-        # must fail as exceptions, not native crashes.
-        if not self._h:
-            raise RuntimeError("store closed")
-        out = (ctypes.c_uint64 * 8)()
-        self._lib.store_stats(self._h, out)
+        out = self._call(self._lib.store_stats, 8)
         return {
             "arena_size": out[0],
             "bytes_in_use": out[1],
@@ -228,10 +245,7 @@ class PoolStore:
         """Drop dead clients' refs (disconnect sweep). Reclaims a
         SIGKILLed creator's unsealed partials — they never seal — and
         completes deferred deletes its refs were pinning."""
-        if not self._h:
-            raise RuntimeError("store closed")
-        out = (ctypes.c_uint64 * 4)()
-        self._lib.store_sweep(self._h, out)
+        out = self._call(self._lib.store_sweep, 4)
         return {
             "clients_swept": out[0],
             "refs_dropped": out[1],
@@ -240,10 +254,7 @@ class PoolStore:
         }
 
     def sweep_stats(self) -> dict:
-        if not self._h:
-            raise RuntimeError("store closed")
-        out = (ctypes.c_uint64 * 4)()
-        self._lib.store_sweep_stats(self._h, out)
+        out = self._call(self._lib.store_sweep_stats, 4)
         return {
             "num_sweeps": out[0],
             "refs_swept": out[1],
@@ -252,13 +263,14 @@ class PoolStore:
         }
 
     def close(self) -> None:
-        if self._h:
-            try:
-                self._shm.close()
-            except BufferError:
-                self._shm.close = lambda: None  # views still alive
-            self._lib.store_detach(self._h)
-            self._h = 0
+        with self._lock:
+            if self._h:
+                try:
+                    self._shm.close()
+                except BufferError:
+                    self._shm.close = lambda: None  # views still alive
+                self._lib.store_detach(self._h)
+                self._h = 0
 
     def destroy(self) -> None:
         name = self.name

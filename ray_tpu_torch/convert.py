@@ -1,11 +1,13 @@
 """Weights from the flax Llama, Mixtral and GPT (`ray_tpu.models.llama`,
-`ray_tpu.models.mixtral`, `ray_tpu.models.gpt`) to the port.
+`ray_tpu.models.mixtral`, `ray_tpu.models.gpt`) and the flax RLlib
+modules (`ray_tpu.rllib.core.rl_module`) to the port.
 
 Takes the flax parameter tree as nested dicts of arrays (anything
 `numpy.asarray` reads) and returns a `state_dict` for
 `ray_tpu_torch.models.LlamaForCausalLM`, `MixtralForCausalLM` or
 `GPTForCausalLM`, in
-float32; `load_state_dict` casts to the model's `param_dtype`.
+float32; `load_state_dict` casts to the model's `param_dtype`; or for
+the parameters of an `ray_tpu_torch.rllib` module.
 """
 from __future__ import annotations
 
@@ -116,4 +118,19 @@ def gpt_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         kernel = _tensor(block["c_proj"]["kernel"])  # [heads, hd, out]
         out[pre + "c_proj.weight"] = kernel.reshape(-1, kernel.shape[-1]).T.contiguous()
         out[pre + "c_proj.bias"] = _tensor(block["c_proj"]["bias"])
+    return out
+
+
+def rl_module_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An RLlib module's parameters: the reference's `{"pi": ..., "vf":
+    ...}` or `{"q": ...}`, each one flax MLP (`{"params": {"Dense_i":
+    {"kernel", "bias"}}}`), to the state dict of the port's
+    `init_params` (`<head>.layers.i.weight` [out, in] and `.bias`)."""
+    out = {}
+    for head, tree in params.items():
+        dense = tree["params"]
+        for i in range(len(dense)):
+            layer = dense[f"Dense_{i}"]
+            out[f"{head}.layers.{i}.weight"] = _tensor(layer["kernel"]).T.contiguous()
+            out[f"{head}.layers.{i}.bias"] = _tensor(layer["bias"])
     return out

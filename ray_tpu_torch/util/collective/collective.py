@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 import ray_tpu_torch
+from ray_tpu_torch.exceptions import GetTimeoutError, RayActorError
 
 _REDUCE_OPS = {
     "sum": lambda arrs: np.sum(arrs, axis=0),
@@ -63,16 +64,27 @@ def _reduce(op: str, ordered: List[Any]) -> Any:
     return _REDUCE_OPS[op]([np.asarray(a) for a in ordered])
 
 
-class _GroupCoordinator:
-    """Async actor: one instance per collective group."""
+# After the first member leaves, the coordinator waits this long for the
+# others before it exits anyway, so a member that crashed cannot keep it.
+LEAVE_TIMEOUT_S = 60.0
 
-    def __init__(self, world_size: int):
+
+class _GroupCoordinator:
+    """Async actor: one instance per collective group. It lives until
+    every member has left (`destroy_collective_group`); the reference's
+    rank 0 kills it on its own return, under the others' replies."""
+
+    def __init__(self, world_size: int, group_name: str = "default"):
         import asyncio
 
         self.world_size = world_size
+        self.group_name = group_name
         self.rounds: Dict[str, Dict[int, Any]] = {}
         self.results: Dict[str, Any] = {}
         self.events: Dict[str, "asyncio.Event"] = {}
+        self.left: set = set()
+        self.leave_timeout_s = LEAVE_TIMEOUT_S
+        self._expiry: Optional["asyncio.Task"] = None
 
     def _event(self, key: str):
         import asyncio
@@ -109,6 +121,24 @@ class _GroupCoordinator:
         self.events.pop(key, None)
         return True
 
+    async def leave(self, rank: int) -> bool:
+        """`rank` has left the group. True for the last member to leave,
+        which then ends the coordinator: every member's replies have
+        returned by then. The expiry runs from the first leave on, so the
+        coordinator ends even if the last member never hears its answer."""
+        import asyncio
+
+        self.left.add(rank)
+        if self._expiry is None:
+            self._expiry = asyncio.ensure_future(self._expire())
+        return len(self.left) >= self.world_size
+
+    async def _expire(self) -> None:
+        import asyncio
+
+        await asyncio.sleep(self.leave_timeout_s)
+        ray_tpu_torch.kill(ray_tpu_torch.get_actor(_coordinator_name(self.group_name)))
+
 
 class _GroupState:
     def __init__(self, name: str, world_size: int, rank: int, coordinator):
@@ -144,10 +174,14 @@ def init_collective_group(
         raise ValueError(f"unsupported backend {backend!r} (host)")
     coordinator_cls = ray_tpu_torch.remote(_GroupCoordinator)
     coordinator = coordinator_cls.options(
-        name=f"__collective_{group_name}", get_if_exists=True
-    ).remote(world_size)
+        name=_coordinator_name(group_name), get_if_exists=True
+    ).remote(world_size, group_name)
     with _groups_lock:
         _groups[group_name] = _GroupState(group_name, world_size, rank, coordinator)
+
+
+def _coordinator_name(group_name: str) -> str:
+    return f"__collective_{group_name}"
 
 
 def _group(group_name: str) -> _GroupState:
@@ -226,10 +260,16 @@ def barrier(group_name: str = "default") -> None:
 
 
 def destroy_collective_group(group_name: str = "default") -> None:
+    """Leave the group. The last member to leave ends its coordinator;
+    one that never leaves holds it LEAVE_TIMEOUT_S after the first did."""
     with _groups_lock:
         g = _groups.pop(group_name, None)
-    if g is not None and g.rank == 0:
-        try:
-            ray_tpu_torch.kill(g.coordinator)
-        except Exception:
-            pass
+    if g is None:
+        return
+    try:
+        last = ray_tpu_torch.get(g.coordinator.leave.remote(g.rank),
+                                 timeout=LEAVE_TIMEOUT_S)
+    except (RayActorError, GetTimeoutError):
+        return  # gone, or too slow to answer: its own leave timeout ends it
+    if last:
+        ray_tpu_torch.kill(g.coordinator)

@@ -7,7 +7,10 @@ what the reference gives, bit for bit; bfloat16 and float32 tensors give
 tensors of their dtype on their device, equal to torch's own reduction
 of the same inputs on the host. Last, phase 20's layout of
 `chip_smoke.py` on a node faked to one GPU: two `num_gpus=0.5` actors
-share the card and run the ops between them.
+share the card and run the ops between them. Last, leaving a group: the
+port's coordinator lives until the last member has left (the reference's
+rank 0 ends it on its own return, under the others' replies), and exits
+on its own once its leave timeout has passed.
 
 Both runtimes run at once in this process (one module-scoped cluster of
 each, 4 CPUs apiece); every test has a deadline, and every `get` a
@@ -23,12 +26,17 @@ import torch
 
 import ray_tpu
 import ray_tpu_torch
+from ray_tpu_torch.util.collective.collective import _GroupCoordinator as _PortCoordinator
 
 DEADLINE_S = 120
 GET_TIMEOUT_S = 60
 RUNTIMES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
 REDUCE_OPS = ("sum", "mean", "max", "min", "product")
 ROUNDS_AT_ONCE = 8
+# _SlowReplies holds the replies of every rank but 0 this long.
+REPLY_DELAY_S = 1.0
+# _SlowLeave answers a leave this late.
+LEAVE_DELAY_S = 2.0
 TORCH_REDUCE = {
     "sum": lambda s: s.sum(0), "mean": lambda s: s.mean(0), "max": lambda s: s.amax(0),
     "min": lambda s: s.amin(0), "product": lambda s: s.prod(0),
@@ -116,6 +124,38 @@ class _Rank:
 
     def leave(self, group):
         self.col.destroy_collective_group(group)
+
+    def leave_within(self, group, seconds):
+        """Leave, waiting at most `seconds` for the coordinator's answer:
+        (whether it raised, how long it took)."""
+        import time
+
+        module = self.col.collective
+        old, module.LEAVE_TIMEOUT_S = module.LEAVE_TIMEOUT_S, seconds
+        t0 = time.monotonic()
+        try:
+            self.col.destroy_collective_group(group)
+            raised = None
+        except Exception as e:  # noqa: BLE001
+            raised = type(e).__name__
+        finally:
+            module.LEAVE_TIMEOUT_S = old
+        return raised, time.monotonic() - t0
+
+    def join(self, group, rank, world):
+        self.col.init_collective_group(world, rank, group_name=group)
+        self.col.barrier(group_name=group)
+
+    def reduce_and_leave(self, group, rank, world):
+        """One allreduce, then leave at once: (the result, when its reply
+        came, when the leave returned)."""
+        import time
+
+        self.col.init_collective_group(world, rank, group_name=group)
+        reduced = self.col.allreduce(np.full((4,), rank + 1.0, np.float32), group_name=group)
+        replied = time.monotonic()
+        self.col.destroy_collective_group(group)
+        return reduced.tolist(), replied, time.monotonic()
 
 
 def _group(runtime, name, world):
@@ -293,3 +333,130 @@ def test_an_async_actor_runs_every_call_on_its_one_event_loop(ranks):
                                   timeout=GET_TIMEOUT_S)
         ray_tpu_torch.kill(actor)
         assert len({x for xs in loops for x in xs}) == 1, loops
+
+
+# ------------------------------------------- leaving a group (the teardown)
+
+
+class _SlowReplies(_PortCoordinator):
+    """The port's coordinator, holding every rank's reply but rank 0's for
+    REPLY_DELAY_S after the round completes: rank 0 returns, and leaves,
+    while ranks 1 and 2 still wait on their replies."""
+
+    async def contribute(self, key, rank, payload, op):
+        import asyncio
+
+        out = await super().contribute(key, rank, payload, op)
+        if rank != 0:
+            await asyncio.sleep(REPLY_DELAY_S)
+        return out
+
+
+class _ShortLeaveTimeout(_PortCoordinator):
+    """The port's coordinator, waiting 0.5 s, not LEAVE_TIMEOUT_S, for the
+    other members once the first has left."""
+
+    def __init__(self, world_size, group_name):
+        super().__init__(world_size, group_name)
+        self.leave_timeout_s = 0.5
+
+
+class _SlowLeave(_ShortLeaveTimeout):
+    """The port's coordinator with the short leave timeout, answering a
+    leave only after LEAVE_DELAY_S."""
+
+    async def leave(self, rank):
+        import asyncio
+
+        await asyncio.sleep(LEAVE_DELAY_S)
+        return await super().leave(rank)
+
+
+def _alive(runtime, name):
+    """Whether the named coordinator still answers."""
+    rt = RUNTIMES[runtime]
+    try:
+        actor = rt.get_actor(name)
+        return rt.get(actor.cleanup.remote("ping"), timeout=10) is True
+    except (ValueError, rt.exceptions.RayActorError):
+        return False
+
+
+def _gone_within(runtime, name, seconds):
+    import time
+
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        if not _alive(runtime, name):
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def test_rank_0_leaving_first_cuts_no_other_ranks_reply(ranks):
+    """A group of three whose rank 0 destroys it as soon as its own reply
+    returns, while ranks 1 and 2 still wait on theirs: every rank gets its
+    result and leaves, and the coordinator ends with the last of them.
+    The parent's rank 0 killed the coordinator under the others' replies,
+    and their allreduce raised RayActorError."""
+    group = "leave_first"
+    name = f"__collective_{group}"
+    ray_tpu_torch.remote(_SlowReplies).options(name=name, get_if_exists=True).remote(3, group)
+    members = ranks["ray_tpu_torch"]
+    out = ray_tpu_torch.get(
+        [m.reduce_and_leave.remote(group, r, 3) for r, m in enumerate(members)],
+        timeout=GET_TIMEOUT_S)
+    assert [reduced for reduced, _, _ in out] == [[6.0] * 4] * 3
+    left_0 = out[0][2]
+    assert all(left_0 < replied for _, replied, _ in out[1:]), out
+    assert _gone_within("ray_tpu_torch", name, 10)
+
+
+@pytest.mark.parametrize("runtime", sorted(RUNTIMES))
+def test_the_coordinator_outlives_rank_0s_destroy_on_the_port_only(ranks, runtime):
+    """The pinned divergence: the reference's rank 0 ends the coordinator
+    when it destroys the group; the port's coordinator lives until the
+    last member has left."""
+    group = _group(runtime, "outlives", 3)
+    name = f"__collective_{group}"
+    members = ranks[runtime]
+    rt = RUNTIMES[runtime]
+    rt.get([m.join.remote(group, r, 3) for r, m in enumerate(members)], timeout=GET_TIMEOUT_S)
+    rt.get(members[0].leave.remote(group), timeout=GET_TIMEOUT_S)
+    after_rank_0 = _alive(runtime, name)
+    rt.get([m.leave.remote(group) for m in members[1:]], timeout=GET_TIMEOUT_S)
+    after_all = not _gone_within(runtime, name, 10)
+    want = (False, False) if runtime == "ray_tpu" else (True, False)
+    assert (after_rank_0, after_all) == want
+
+
+def test_a_member_that_never_leaves_holds_the_coordinator_only_until_its_timeout(ranks):
+    """Rank 0 leaves and ranks 1 and 2 do not (as if they had crashed):
+    the coordinator exits once its leave timeout has passed, and a late
+    destroy on the others then returns."""
+    group = "never_leaves"
+    name = f"__collective_{group}"
+    ray_tpu_torch.remote(_ShortLeaveTimeout).options(name=name, get_if_exists=True).remote(
+        3, group)
+    members = ranks["ray_tpu_torch"]
+    ray_tpu_torch.get([m.join.remote(group, r, 3) for r, m in enumerate(members)],
+                      timeout=GET_TIMEOUT_S)
+    ray_tpu_torch.get(members[0].leave.remote(group), timeout=GET_TIMEOUT_S)
+    assert _gone_within("ray_tpu_torch", name, 10)
+    ray_tpu_torch.get([m.leave.remote(group) for m in members[1:]], timeout=GET_TIMEOUT_S)
+
+
+def test_a_leave_the_coordinator_is_slow_to_answer_returns_and_the_coordinator_still_ends(ranks):
+    """A member whose leave outlasts its wait returns from the destroy
+    without raising (a GetTimeoutError there would stop a learner group's
+    shutdown before it killed its learners), and the coordinator, which
+    then has no member left to end it, ends on its own timeout."""
+    group = "slow_leave"
+    name = f"__collective_{group}"
+    ray_tpu_torch.remote(_SlowLeave).options(name=name, get_if_exists=True).remote(1, group)
+    (member, *_) = ranks["ray_tpu_torch"]
+    ray_tpu_torch.get(member.join.remote(group, 0, 1), timeout=GET_TIMEOUT_S)
+    raised, seconds = ray_tpu_torch.get(member.leave_within.remote(group, 0.5),
+                                        timeout=GET_TIMEOUT_S)
+    assert raised is None and seconds < LEAVE_DELAY_S, (raised, seconds)
+    assert _gone_within("ray_tpu_torch", name, 10)

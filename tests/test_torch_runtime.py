@@ -207,7 +207,8 @@ def test_both_runtimes_at_once_in_one_process():
 
 
 def test_port_imports_nothing_of_the_reference():
-    code = ("import sys, ray_tpu_torch, ray_tpu_torch.train; "
+    code = ("import sys, ray_tpu_torch, ray_tpu_torch.train, ray_tpu_torch.tune, "
+            "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('ray_tpu', 'jax', 'flax', 'optax', 'orbax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
