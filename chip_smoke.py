@@ -162,7 +162,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    settings: each iteration's sample ms and `episode_return_mean`, every
    loss finite, and the best return at least the reference's 80. Where
    it is not installed, the batch is built without an env from
-   CartPole's shapes, and the phase says so.
+   CartPole's shapes, and the phase says so;
+23. Serve (`ray_tpu_torch.serve`): `serve.start(proxy=False)` and a
+   `LlamaServer` deployment of one GPU holding llama-1b (seed 0, bf16
+   parameters); its `@serve.batch(max_batch_size=8,
+   batch_wait_timeout_s=0.2)` method right-pads a batch and runs the
+   forward under `inference_mode`. Two rounds of 16 requests of 128-2048
+   tokens, each round sent at once through the handle: the replica on
+   the card, every response's last-position logits within GPT's bf16
+   limit of the same request alone through this process's llama-1b and
+   the same next token wherever the top two logits differ by more than
+   the row's largest difference, at least one batch of more than one
+   request, K1 launched 22 times per batch in the replica and K2, K3
+   never; the seconds from `serve.run` to ready, the batch sizes, each
+   round's latency p50 and p99, the replica's forward ms per batch (the
+   first apart) beside the same shapes in this process, prefill tokens/s.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -267,6 +281,24 @@ TUNE_STEPS, TUNE_OTHER_LR = 2, 1e-3
 # tests/test_rllib.py's PPO settings, threshold and budget.
 PPO_CARD_ATOL = 1e-5
 PPO_THRESHOLD, PPO_ITERATIONS = 80.0, 20
+# Phase 23: Serve. Two rounds of SERVE_REQUESTS requests, sent at once
+# through the handle to one num_gpus=1 llama-1b replica, whose
+# `@serve.batch` method takes up to SERVE_MAX_BATCH of them within
+# SERVE_WAIT_S; request lengths from RandomState(0) in [SERVE_MIN_LEN,
+# SERVE_MAX_LEN], ids from RandomState(1). Each response's last-position
+# logits against the same request alone through this process's llama-1b.
+# Both sides run the same bf16 weights through the same kernels; a
+# request's rows meet the same K1 tiles batched or alone, and only the
+# GEMMs' row counts differ (the worst normwise error read 2.70e-07 on an
+# H100). So the limit sits far below what a wrong or mixed row would give.
+SERVE_MODEL = "llama-1b"
+SERVE_REQUESTS, SERVE_ROUNDS = 16, 2
+SERVE_MAX_BATCH, SERVE_WAIT_S = 8, 0.2
+SERVE_MIN_LEN, SERVE_MAX_LEN = 128, 2048
+SERVE_LOGITS_REL = 1e-4
+SERVE_TIMEOUT_S = 300
+# Phase 23 times this process's forward of each batch shape over this many runs.
+SERVE_FORWARD_REPEATS = 3
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -2022,6 +2054,200 @@ def phase_ppo(card):
             group.shutdown()
 
 
+def llama_server():
+    """Phase 23's deployment: SERVE_MODEL on the card of its replica (one
+    GPU), seed 0, bf16 parameters, as phase 5 builds it. Its
+    `@serve.batch` method right-pads a batch of token-id lists to the
+    longest and runs the model under `inference_mode`, K1 causal in every
+    layer (right padding reaches no real position under the causal
+    mask); the LM head runs on each request's last real position only.
+    A replica without a card raises."""
+    from ray_tpu_torch import serve
+
+    @serve.deployment(ray_actor_options={"num_gpus": 1})
+    class LlamaServer:
+        def __init__(self):
+            from dataclasses import replace
+
+            import torch
+
+            from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+
+            if not torch.cuda.is_available():
+                raise RuntimeError("LlamaServer: the replica sees no CUDA card")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            cfg = replace(CONFIGS[SERVE_MODEL], param_dtype=torch.bfloat16)
+            self.model = LlamaForCausalLM(cfg, device="cuda")
+            self.batches = []
+
+        @serve.batch(max_batch_size=SERVE_MAX_BATCH, batch_wait_timeout_s=SERVE_WAIT_S)
+        async def generate(self, requests):
+            import threading
+
+            import torch
+
+            lengths = [len(r) for r in requests]
+            ids = torch.zeros(len(requests), max(lengths), dtype=torch.long)
+            for i, r in enumerate(requests):
+                ids[i, :len(r)] = torch.as_tensor(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                hidden = self.model(ids.cuda(), return_hidden=True)
+                last = hidden[torch.arange(len(requests)), torch.as_tensor(lengths) - 1]
+                logits = self.model.lm_head(last).float().cpu()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.batches.append({"lengths": lengths, "ms": ms,
+                                 "thread": threading.current_thread().name})
+            return [(logits[i].numpy(), int(logits[i].argmax())) for i in range(len(requests))]
+
+        async def __call__(self, ids):
+            return await self.generate(ids)
+
+        def reset(self):
+            from ray_tpu_torch.ops import attention as A
+
+            A.reset_launch_counts()
+            self.batches = []
+
+        def stats(self):
+            import os
+
+            import torch
+
+            from ray_tpu_torch.ops import attention as A
+
+            return {"card": torch.cuda.get_device_name(), "launches": dict(A.LAUNCHES),
+                    "batches": self.batches,
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    return LlamaServer
+
+
+def phase_serve(card):
+    """Serve: a num_gpus=1 llama-1b replica answering two rounds of ragged
+    requests through `@serve.batch`; every response held against the same
+    request alone through this process's model; K1's launches counted in
+    the replica. Returns the replica's K1 launches."""
+    import asyncio
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+
+    cfg = replace(CONFIGS[SERVE_MODEL], param_dtype=torch.bfloat16)
+    lengths = np.random.RandomState(0).randint(SERVE_MIN_LEN, SERVE_MAX_LEN + 1, SERVE_REQUESTS)
+    ids_rng = np.random.RandomState(1)
+    requests = [ids_rng.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+    async def send_all(handle):
+        async def one(r):
+            t0 = time.perf_counter()
+            out = await handle.remote(r)
+            return out, (time.perf_counter() - t0) * 1e3
+
+        return await asyncio.wait_for(asyncio.gather(*(one(r) for r in requests)),
+                                      SERVE_TIMEOUT_S)
+
+    serve.start(proxy=False)
+    try:
+        t0 = time.perf_counter()
+        handle = serve.run(llama_server().bind(), name="llama", route_prefix=None,
+                           timeout_s=SERVE_TIMEOUT_S)
+        ready_s = time.perf_counter() - t0
+        handle.reset.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        rounds = []
+        for _ in range(SERVE_ROUNDS):
+            t0 = time.perf_counter()
+            answered = asyncio.run(send_all(handle))
+            rounds.append({"wall_s": time.perf_counter() - t0, "answers": [a for a, _ in answered],
+                           "latency_ms": [ms for _, ms in answered]})
+        stats = handle.stats.remote().result(timeout_s=SERVE_TIMEOUT_S)
+    finally:
+        serve.shutdown()
+
+    check(stats["card"] == torch.cuda.get_device_name(0),
+          f"the replica ran on {stats['card']!r}, not on {torch.cuda.get_device_name(0)!r}")
+    batches = stats["batches"]
+    sizes = [len(b["lengths"]) for b in batches]
+    launches = stats["launches"]
+    check(sum(sizes) == SERVE_ROUNDS * SERVE_REQUESTS,
+          f"the replica's batches {sizes} hold {sum(sizes)} requests, not "
+          f"{SERVE_ROUNDS * SERVE_REQUESTS}")
+    check(max(sizes) > 1, f"no batch held more than one request: {sizes}")
+    check(launches["flash_fwd"] == cfg.num_layers * len(batches),
+          f"flash_fwd launched {launches['flash_fwd']} times in the replica for "
+          f"{len(batches)} batches, expected {cfg.num_layers * len(batches)}")
+    check(launches["flash_bwd_dkv"] == 0 and launches["flash_bwd_dq"] == 0,
+          f"backward kernels launched in the replica: {launches}")
+
+    # Each request alone through this process's model, built the same way.
+    model = LlamaForCausalLM(cfg, device="cuda")
+    worst_rel = 0.0
+    with torch.inference_mode():
+        for rnd in rounds:
+            for r, (got, token) in zip(requests, rnd["answers"]):
+                hidden = model(torch.as_tensor([r], device="cuda"), return_hidden=True)
+                want = model.lm_head(hidden[:, -1]).float()[0].cpu()
+                got = torch.tensor(got)
+                diff = (got - want).abs()
+                rel = float((got - want).norm() / want.norm())
+                worst_rel = max(worst_rel, rel)
+                check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+                      and rel <= SERVE_LOGITS_REL,
+                      f"a served request of {len(r)} tokens: logits relative error {rel:.3e}")
+                top2 = want.topk(2).values
+                check(token == int(want.argmax()) or float(top2[0] - top2[1]) <= float(diff.max()),
+                      f"a served request of {len(r)} tokens: next token {token}, alone "
+                      f"{int(want.argmax())} (top-2 gap {float(top2[0] - top2[1]):.3e}, largest "
+                      f"difference {float(diff.max()):.3e})")
+        # Each batch shape the replica formed, timed in this process.
+        here_ms = []
+        for b in batches:
+            ids = torch.zeros(len(b["lengths"]), max(b["lengths"]), dtype=torch.long, device="cuda")
+            model(ids, return_hidden=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVE_FORWARD_REPEATS):
+                model(ids, return_hidden=True)
+            torch.cuda.synchronize()
+            here_ms.append((time.perf_counter() - t0) * 1e3 / SERVE_FORWARD_REPEATS)
+    del model
+    torch.cuda.empty_cache()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q))
+
+    print(f"Serve {SERVE_MODEL} bf16 on {card}: serve.run to ready {ready_s:.2f} s (GPU worker "
+          f"spawn, torch import, CUDA start, weights; replica on "
+          f"CUDA_VISIBLE_DEVICES={stats['visible']}, {stats['card']})", flush=True)
+    print(f"Serve batches on {card} (max_batch_size {SERVE_MAX_BATCH}, batch_wait_timeout_s "
+          f"{SERVE_WAIT_S}): sizes {sizes}, padded T {[max(b['lengths']) for b in batches]}, "
+          f"forward ms in the replica {[round(b['ms'], 2) for b in batches]} (first batch "
+          f"{batches[0]['ms']:.2f} ms on thread {batches[0]['thread']!r}, the rest median "
+          f"{float(np.median([b['ms'] for b in batches[1:]])):.2f} ms), the same batch shapes "
+          f"in this process {[round(ms, 2) for ms in here_ms]}", flush=True)
+    real_tokens = int(lengths.sum())
+    for i, rnd in enumerate(rounds):
+        lat = rnd["latency_ms"]
+        print(f"Serve round {i} on {card}: {SERVE_REQUESTS} requests of {real_tokens} tokens at "
+              f"once, latency through the handle p50 {pct(lat, 50):.1f} ms, p99 "
+              f"{pct(lat, 99):.1f} ms, round {rnd['wall_s']:.3f} s, prefill "
+              f"{real_tokens / rnd['wall_s']:.0f} tokens/s", flush=True)
+    later = batches[1:]
+    padded = sum(len(b["lengths"]) * max(b["lengths"]) for b in later)
+    print(f"Serve {SERVE_MODEL} on {card}: every response within {SERVE_LOGITS_REL} of the same "
+          f"request alone (worst {worst_rel:.3e}), next tokens equal; launches in the replica "
+          f"{launches} ({cfg.num_layers} flash_fwd per batch, {len(batches)} batches); prefill "
+          f"in the replica's forwards after the first "
+          f"{padded / (sum(b['ms'] for b in later) / 1e3):.0f} padded tokens/s: ok", flush=True)
+    return launches["flash_fwd"]
+
+
 def main() -> int:
     import torch
 
@@ -2156,6 +2382,8 @@ def main() -> int:
         phase_tune(card, llama_in_process)
         # 22. RLlib PPO with its learner on the card
         phase_ppo(card)
+        # 23. Serve: a num_gpus=1 llama-1b replica, K1 counted in the replica
+        serve_launches = phase_serve(card)
     finally:
         rt.shutdown()
 
@@ -2171,6 +2399,8 @@ def main() -> int:
             "ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound"][0],
             "bound_by": n["bound"][1], "library_ms": n["library_ms"],
         })
+        if name == "flash_fwd":
+            kernels[-1]["serve_launches"] = serve_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ GCS over the session's unix socket.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import os
 import threading
@@ -32,8 +33,16 @@ _return_oids = (
     if _fp is not None
     else lambda tid, n: [ObjectID.bytes_for_return(tid, i) for i in range(n)]
 )
-_LEASE_PIPELINE_MAX = 16  # max in-flight tasks per leased worker
+# In-flight tasks per leased worker. One, as in upstream Ray
+# (max_tasks_in_flight_per_worker): a task queued behind another on one
+# worker waits for it, and if the first waits for the second (ranks of
+# a collective group) neither ever ends. The rest of a burst waits in
+# the owner's backlog for its class and goes to the next lease to drain.
+_LEASE_PIPELINE_MAX = 1
 _LEASE_IDLE_RETURN_S = 0.5  # idle leases are given back after this
+# A lease whose task has run this long is stalled; once every lease of a
+# class is, and the pool cannot grow, its backlog goes through the head.
+_LEASE_STALL_S = 1.0
 _FLUSH_INTERVAL_S = 0.002  # safety flush for lazily-buffered sends
 
 # get() resolution kinds: direct-call reply socket, same-host store hit
@@ -169,6 +178,9 @@ class CoreClient:
         # stampede of synchronized grow round-trips. The deadline entry
         # is popped (and the backoff reset) on a successful grow.
         self._lease_grow_hold_until: Dict[Any, float] = {}
+        # Scheduling class -> tasks waiting for a lease of that class to
+        # drain: (spec, result future, submit time), oldest first.
+        self._lease_backlog: Dict[Any, collections.deque] = {}
         self._lease_backoff: Dict[Any, Any] = {}
         self._lease_reaper: Optional[threading.Thread] = None
         # Distributed refcounting + lineage (reference_count.h:61,
@@ -651,12 +663,23 @@ class CoreClient:
     # ------------------------------------------------------------------ submit
 
     def register_function_once(self, function_id: bytes, blob: bytes) -> Optional[bytes]:
-        """Returns the blob if this client hasn't shipped it yet, else None."""
+        """Registers the function with the head on its first call here,
+        waiting for the answer, and returns None: the spec need not
+        carry the blob. Waiting matters for the leased route, which
+        reaches a worker without the head, and the worker fetches the
+        function from the head (the reference ships the blob with the
+        first submit, which a later leased call can overtake)."""
+        if function_id in self._registered_functions:
+            return None
         with self._fn_lock:
-            if function_id in self._registered_functions:
-                return None
-            self._registered_functions.add(function_id)
-            return blob
+            if function_id not in self._registered_functions:
+                self.request_reliable({
+                    "type": "register_function",
+                    "function_id": function_id,
+                    "blob": blob,
+                })
+                self._registered_functions.add(function_id)
+        return None
 
     def fetch_function(self, function_id: bytes) -> bytes:
         reply = self.request_reliable(
@@ -744,59 +767,38 @@ class CoreClient:
         key = spec.scheduling_class()
         now = time.monotonic()
         with self._lease_lock:
-            pool = self._leases.setdefault(key, [])
-            lease = min(pool, key=lambda c: c["outstanding"], default=None)
-            expand = (
-                lease is not None
-                and lease["outstanding"] >= _LEASE_PIPELINE_MAX
-                # Back off after a failed grow: each attempt is a
-                # synchronous GCS round-trip, and a saturated pool would
-                # otherwise retry on every submit of a burst.
-                and not self._lease_grow_held(key, now)
-            )
-            if lease is not None and not expand:
-                # Claim under the lock so the idle reaper can't return
-                # the lease between selection and push.
-                lease["outstanding"] += 1
-        if lease is None and self._lease_grow_held(key, now):
-            return None  # recent failed acquire (e.g. remote driver): GCS route
-        if lease is None or expand:
-            fresh = self._acquire_lease(key, spec.resources)
-            if fresh is not None:
-                lease = fresh
-                with self._lease_lock:
-                    # Grow succeeded: the hold-off window resets.
-                    bo = self._lease_backoff.get(key)
-                    if bo is not None:
-                        bo.reset()
-                    self._lease_grow_hold_until.pop(key, None)
-            else:
-                self._note_lease_grow_failed(key)
-                if lease is None:
-                    return None  # no lease at all: GCS route
-            # Pool can't grow: queue on the least-loaded lease anyway —
-            # workers drain serially either way, and mixing paths would
-            # strand the GCS-routed overflow behind held leases.
-            with self._lease_lock:
-                if lease["returned"]:
-                    # Reaped while the grow round-trip was in flight
-                    # (a loaded head can stall lease_worker past the
-                    # idle-return window): its conn is closing and its
-                    # reader may already be gone — a frame pushed now
-                    # would be dropped with a forever-pending future.
-                    return None  # GCS route
-                lease["outstanding"] += 1
+            lease = self._claim_free_lease(key, now)
+        if lease is None:
+            # Back off after a failed grow: each attempt is a
+            # synchronous GCS round-trip, and a saturated pool would
+            # otherwise retry on every submit of a burst.
+            held = self._lease_grow_held(key, now)
+            lease = None if held else self._grow_lease(key, spec.resources)
+            if lease is None:
+                if not held:
+                    self._note_lease_grow_failed(key)
+                # Pool can't grow: wait in the class's backlog for the
+                # next lease to drain, never behind another task on a
+                # worker (see _LEASE_PIPELINE_MAX). No lease at all (or
+                # one reaped meanwhile): the GCS route.
+                return self._queue_leased(key, spec, t_submit)
+        self._record_lease_span(spec, t_submit)
+        return self._push_leased(lease, spec)
+
+    @staticmethod
+    def _record_lease_span(spec: TaskSpec, t_submit: float) -> None:
         # t_submit truthy too: recording toggled on mid-submit must not
         # ship a half-captured span (a 0.0 boundary poisons the phase
         # histograms with epoch-sized durations).
+        _rec = _events.get_recorder()
         if _rec.enabled and t_submit:
             # Recorded BEFORE the push so the span is in the ring before
             # the task can possibly execute — the head aggregator drains
             # this process's ring ahead of shipped worker batches, which
             # keeps submit→…→seal ordered without cross-process sync.
-            # t_queue = t_submit: a directly-pushed task never queued, so
-            # the queue phase is zero-width and the submit→lease-claim
-            # gap is attributed to the lease phase.
+            # t_queue = t_submit: the owner queues at once, so the
+            # submit→lease-claim gap (the backlog's wait, if any) is
+            # attributed to the lease phase.
             _rec.record(
                 _events.TASK, spec.task_id.hex(), "SUBMIT_SPAN",
                 {
@@ -806,7 +808,70 @@ class CoreClient:
                     "route": "lease",
                 },
             )
-        return self._push_leased(lease, spec)
+
+    def _claim_free_lease(self, key, now: float) -> Optional[dict]:
+        """A lease of the class with no task on it, claimed (caller
+        holds the lease lock, so the idle reaper can't return the lease
+        between selection and push)."""
+        for lease in self._leases.get(key, ()):
+            if lease["outstanding"] < _LEASE_PIPELINE_MAX:
+                lease["outstanding"] += 1
+                lease["busy_since"] = now
+                return lease
+        return None
+
+    def _grow_lease(self, key, resources) -> Optional[dict]:
+        """Lease one more worker for the class, claimed; None if none."""
+        lease = self._acquire_lease(key, resources)
+        if lease is None:
+            return None
+        with self._lease_lock:
+            # Grow succeeded: the hold-off window resets.
+            bo = self._lease_backoff.get(key)
+            if bo is not None:
+                bo.reset()
+            self._lease_grow_hold_until.pop(key, None)
+            if lease["returned"]:
+                # Reaped while the grow round-trip was in flight (a
+                # loaded head can stall lease_worker past the idle-
+                # return window): its conn is closing and its reader
+                # may already be gone — a frame pushed now would be
+                # dropped with a forever-pending future.
+                return None
+            lease["outstanding"] += 1
+            lease["busy_since"] = time.monotonic()
+        return lease
+
+    def _queue_leased(
+        self, key, spec: TaskSpec, t_submit: float
+    ) -> Optional[List[ObjectRef]]:
+        """Queue a task at the owner until a lease of its class drains
+        (reference: the owner's per-class task queue in
+        direct_task_transport.cc). Its returns resolve through a future
+        of their own that the eventual push (or a handoff to the head)
+        settles. None when the class holds no lease to wait for."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        oids = _return_oids(spec.task_id._bytes, spec.num_returns)
+        with self._lease_lock:
+            lease = self._claim_free_lease(key, time.monotonic())
+            if lease is None:
+                if not any(not c["returned"] for c in self._leases.get(key, ())):
+                    return None
+                for i, ob in enumerate(oids):
+                    self._lineage[ob] = spec
+                    self._direct_results[ob] = (fut, i)
+                self._lease_backlog.setdefault(key, collections.deque()).append(
+                    (spec, fut, t_submit)
+                )
+                self._ensure_lease_reaper()
+        if lease is not None:
+            # A lease drained while the grow failed.
+            self._record_lease_span(spec, t_submit)
+            return self._push_leased(lease, spec)
+        owner = self.worker_id.binary()
+        refs = [ObjectRef(ObjectID(ob), owner) for ob in oids]
+        self._advertise_returns(refs)
+        return refs
 
     def _lease_grow_held(self, key, now: float) -> bool:
         """Inside the post-failure hold-off window for this class?"""
@@ -930,47 +995,59 @@ class CoreClient:
         except ConnectionLost:
             pass
 
-    def _push_leased(self, lease, spec: TaskSpec) -> List[ObjectRef]:
+    def _push_leased(
+        self, lease, spec: TaskSpec, queued: Optional[concurrent.futures.Future] = None
+    ) -> Optional[List[ObjectRef]]:
         """Caller must have already claimed a slot (outstanding += 1).
 
         Ships a compact OP_CALL frame, buffered (send_lazy): a burst of
         submissions coalesces into one wire message, and the reply
         future doubles as the per-return result slot — get() interprets
         the reply frame lazily, so the steady-state task costs one
-        Future and one tuple pickle end to end."""
+        Future and one tuple pickle end to end. A task from the backlog
+        ships at once, and the future its refs were handed out with
+        (``queued``) takes the reply; it returns no refs."""
         conn: PeerConn = lease["conn"]
         tid = spec.task_id._bytes
         nret = spec.num_returns
         oids = _return_oids(tid, nret)
-        lineage = self._lineage
-        for ob in oids:
-            lineage[ob] = spec
         req_id = conn.next_req_id()
-        rfut = conn.register_future(req_id)
-        for i, ob in enumerate(oids):
-            self._direct_results[ob] = (rfut, i)
+        rfut = conn.register_future(req_id, queued)
+        refs = None
+        if queued is None:
+            lineage = self._lineage
+            for i, ob in enumerate(oids):
+                lineage[ob] = spec
+                self._direct_results[ob] = (rfut, i)
+            owner = self.worker_id.binary()
+            refs = [ObjectRef(ObjectID(ob), owner) for ob in oids]
+            self._advertise_returns(refs)
         frame = (
             OP_CALL, req_id, tid, spec.function_id, None, spec.args_blob,
             nret, None, None,
         )
-        owner = self.worker_id.binary()
-        refs = [ObjectRef(ObjectID(ob), owner) for ob in oids]
-        self._advertise_returns(refs)
         try:
             conn.send_lazy(frame)
+            if queued is None:
+                self._mark_lazy(conn)
+            else:
+                conn.flush()
         except ConnectionLost:
             conn.drop_future(req_id)
             # Send failed: the task never reached the worker, so a GCS
             # resubmit is always safe.
             self._leased_conn_lost(lease, spec, oids, delivered=False)
+            if queued is not None:
+                queued.set_exception(ConnectionLost("leased worker lost"))
             return refs
-        self._mark_lazy(conn)
         if conn.closed_after_push(req_id):
             # Closed between claim and push (the 1-in-200k lost-task
             # wedge): resolve through the conn-lost path;
             # delivered=True keeps at-most-once semantics in case the
             # frame flushed before the close landed.
             self._leased_conn_lost(lease, spec, oids, delivered=True)
+            if queued is not None:
+                queued.set_exception(ConnectionLost("leased worker lost"))
             return refs
         rfut.add_done_callback(
             lambda f, lease=lease, spec=spec, oids=oids: self._resolve_leased(
@@ -1017,6 +1094,10 @@ class CoreClient:
             spec.max_retries -= 1
         for ob in oids:
             self._direct_results[ob] = {"via_gcs": True}
+        self._submit_via_head(spec)
+        self._wait_on_failure(oids)
+
+    def _submit_via_head(self, spec: TaskSpec) -> None:
         try:
             # Fast path: head healthy, the resubmit lands instantly.
             # raylint: disable=raw-send-on-gcs-path -- ConnectionLost hands off to send_reliable on a side thread below; a raw drop here previously lost the resubmit across a head failover (the _report_done bug class)
@@ -1032,7 +1113,6 @@ class CoreClient:
             # leases die together in a failover, so thread-per-spec
             # would balloon exactly when the process is degraded.
             self._queue_resubmit(spec)
-        self._wait_on_failure(oids)
 
     def _queue_resubmit(self, spec):
         with self._resubmit_lock:
@@ -1086,13 +1166,24 @@ class CoreClient:
     def _dec_lease(self, lease):
         with self._lease_lock:
             lease["outstanding"] -= 1
-            if lease["outstanding"] <= 0:
+            if lease["outstanding"] > 0:
+                return
+            backlog = self._lease_backlog.get(lease["key"])
+            if backlog and not lease["returned"]:
+                spec, fut, t_submit = backlog.popleft()
+                lease["outstanding"] += 1
+                lease["busy_since"] = time.monotonic()
+            else:
                 # Keep the lease warm: returning on drain would pay a
                 # lease round-trip per burst (reference: leased workers
                 # are reused across tasks of a scheduling class and
                 # returned after an idle timeout).
                 lease["idle_since"] = time.monotonic()
                 self._ensure_lease_reaper()
+                return
+        # The next task of the class's backlog takes the drained lease.
+        self._record_lease_span(spec, t_submit)
+        self._push_leased(lease, spec, queued=fut)
 
     def _ensure_lease_reaper(self):
         if self._lease_reaper is None:
@@ -1106,6 +1197,7 @@ class CoreClient:
             time.sleep(0.1)
             now = time.monotonic()
             to_return = []
+            waiting = []
             with self._lease_lock:
                 for key, pool in self._leases.items():
                     for lease in list(pool):
@@ -1118,6 +1210,14 @@ class CoreClient:
                             lease["returned"] = True
                             pool.remove(lease)
                             to_return.append(lease)
+                for key, backlog in self._lease_backlog.items():
+                    if backlog:
+                        stalled = all(
+                            c["outstanding"] > 0
+                            and now - c["busy_since"] > _LEASE_STALL_S
+                            for c in self._leases.get(key, ())
+                        )
+                        waiting.append((key, backlog[0][0].resources, stalled))
             for lease in to_return:
                 lease["conn"].close()
                 if not self._running():
@@ -1125,6 +1225,36 @@ class CoreClient:
                 self._send_lease_return(
                     lease["worker_id"], lease.get("raylet", False)
                 )
+            for key, resources, stalled in waiting:
+                self._serve_backlog(key, resources, stalled, now)
+
+    def _serve_backlog(self, key, resources, stalled: bool, now: float) -> None:
+        """A class's backlog outlasted a reaper pass: ask for another
+        lease (the backlog grows while every lease is busy); if none
+        comes and every lease has stalled on a long task (ranks of a
+        collective waiting for a queued rank, say), the backlog goes
+        through the head, which sees the whole cluster."""
+        lease = None
+        if not self._lease_grow_held(key, now):
+            lease = self._grow_lease(key, resources)
+            if lease is None:
+                self._note_lease_grow_failed(key)
+        if lease is not None:
+            self._dec_lease(lease)  # frees the claim: pushes the next task
+            return
+        if not stalled:
+            return
+        with self._lease_lock:
+            backlog = self._lease_backlog.pop(key, None) or ()
+        for spec, fut, _ in backlog:
+            oids = _return_oids(spec.task_id._bytes, spec.num_returns)
+            for ob in oids:
+                self._direct_results[ob] = {"via_gcs": True}
+            self._submit_via_head(spec)
+            # Parked gets read the rewritten entry (see
+            # _resolve_direct_entry); waits move to a GCS subscription.
+            fut.set_exception(ConnectionLost("handed to the head"))
+            self._wait_on_failure(oids)
 
     # ----------------------------------------------------- direct actor path
 

@@ -178,10 +178,12 @@ class PeerConn:
     def next_req_id(self) -> int:
         return next(self._req_counter)
 
-    def register_future(self, req_id: int) -> Future:
-        """Register a reply future for a frame the caller sends itself
-        (compact tuple frames carry the req_id in-band)."""
-        fut: Future = Future()
+    def register_future(self, req_id: int, fut: Optional[Future] = None) -> Future:
+        """Register a reply future (a new one unless given) for a frame
+        the caller sends itself (compact tuple frames carry the req_id
+        in-band)."""
+        if fut is None:
+            fut = Future()
         with self._pending_lock:
             self._pending[req_id] = fut
         return fut

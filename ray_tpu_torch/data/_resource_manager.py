@@ -16,7 +16,10 @@ backpressure must never deadlock the pipeline).
 
 Output-size estimates start from the input metadata (file bytes for
 reads, block bytes for maps) and converge to the running mean of
-actual completed outputs.
+actual completed outputs. Until an op's first task has finished, its
+estimate is only that guess, so it runs one task at a time (the
+reference launches on the guess: a map that grows its blocks then
+overshoots the budget by as many blocks as complete out of order).
 """
 from __future__ import annotations
 
@@ -79,6 +82,8 @@ class ResourceManager:
             u = self._op(op_id)
             if u.used <= 0:
                 return True  # progress guarantee: >=1 task per op
+            if not u.completed:
+                return False  # no output size seen yet
             if u.used + est <= self.reserved_per_op:
                 return True
             # Borrow from the shared pool.

@@ -26,6 +26,13 @@ does takes cores from it.
 
 `--device cpu` runs the same at a small size on the CPU (llama-tiny,
 `use_gpu=False`) to rehearse it.
+
+    python -m ray_tpu_torch.profile_runtime --tasks 2000
+
+runs only the task path instead, on a runtime of TASK_CPUS CPUs: tasks/s
+of a burst of that many no-op tasks submitted at once and then gathered,
+in each of TASK_ROUNDS rounds, through leased workers and then with the
+leased route turned off, so that every task goes through the head.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 REPEATS = 3
+TASK_CPUS, TASK_ROUNDS = 4, 3
 # bench_model calls on one model in each place the step runs.
 ROUNDS = 2
 
@@ -116,21 +124,30 @@ def build_and_step(config):
     cfg = CONFIGS[config["model"]]
     if config["device"] == "cuda":
         cfg = replace(cfg, param_dtype=torch.bfloat16)
-    model = LlamaForCausalLM(cfg, device=config["device"])
-    rounds = []
-    for _ in range(ROUNDS):
-        collections = [g["collections"] for g in gc.get_stats()]
-        before, t0 = cpu_snapshot(), time.perf_counter()
-        mine, process = time.thread_time(), time.process_time()
-        r = bench_model(model, config["batch"], config["seq"], 3, H100_BF16_PEAK_FLOPS)
-        mine, process = time.thread_time() - mine, time.process_time() - process
-        usage = cpu_delta(before, cpu_snapshot(), time.perf_counter() - t0)
-        # The clocks, where /proc lists no threads.
-        usage["loop_thread_cpu_s"] = round(mine, 3)
-        usage["process_cpu_s"] = round(process, 3)
-        usage["gc_collections"] = [g["collections"] - n
-                                   for g, n in zip(gc.get_stats(), collections)]
-        rounds.append({"step_ms": r["step_ms"], "losses": r["losses"], "usage": usage})
+    threads = torch.get_num_threads()
+    if config["device"] == "cpu":
+        # The rehearsal's small steps gain nothing from an intra-op pool,
+        # and on a loaded host each process's pool spins against the
+        # others' (every round several times slower).
+        torch.set_num_threads(1)
+    try:
+        model = LlamaForCausalLM(cfg, device=config["device"])
+        rounds = []
+        for _ in range(ROUNDS):
+            collections = [g["collections"] for g in gc.get_stats()]
+            before, t0 = cpu_snapshot(), time.perf_counter()
+            mine, process = time.thread_time(), time.process_time()
+            r = bench_model(model, config["batch"], config["seq"], 3, H100_BF16_PEAK_FLOPS)
+            mine, process = time.thread_time() - mine, time.process_time() - process
+            usage = cpu_delta(before, cpu_snapshot(), time.perf_counter() - t0)
+            # The clocks, where /proc lists no threads.
+            usage["loop_thread_cpu_s"] = round(mine, 3)
+            usage["process_cpu_s"] = round(process, 3)
+            usage["gc_collections"] = [g["collections"] - n
+                                       for g, n in zip(gc.get_stats(), collections)]
+            rounds.append({"step_ms": r["step_ms"], "losses": r["losses"], "usage": usage})
+    finally:
+        torch.set_num_threads(threads)
     return {"thread": threading.current_thread().name,
             "step_ms": [r["step_ms"] for r in rounds], "rounds": rounds}
 
@@ -198,6 +215,32 @@ def object_plane(rt, mib: int, device: str):
     return {k: {"ms": round(v, 3), "GB/s": round(gb / (v / 1e3), 3)} for k, v in ms.items()}
 
 
+def task_bursts(rt, n: int):
+    """Tasks/s of each round's burst of n no-op tasks, by route."""
+    from ray_tpu_torch._private.worker import global_client
+
+    @rt.remote
+    def noop(i):
+        return i
+
+    client = global_client()
+    rates = {}
+    try:
+        for route in ("lease", "head"):
+            if route == "head":
+                client._lease_eligible = lambda spec: False
+            rt.get([noop.remote(i) for i in range(100)])
+            rates[route] = []
+            for _ in range(TASK_ROUNDS):
+                t0 = time.perf_counter()
+                if rt.get([noop.remote(i) for i in range(n)]) != list(range(n)):
+                    raise RuntimeError("a burst of no-op tasks answered wrongly")
+                rates[route].append(round(n / (time.perf_counter() - t0), 1))
+    finally:
+        client.__dict__.pop("_lease_eligible", None)
+    return rates
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default=None, help="llama-1b on the card, llama-tiny on the CPU")
@@ -206,7 +249,20 @@ def main(argv=None) -> int:
     ap.add_argument("--mib", type=int, default=None, help="64 on the card, 4 on the CPU")
     ap.add_argument("--fits", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tasks", type=int, default=0,
+                    help="time bursts of this many no-op tasks instead")
     args = ap.parse_args(argv)
+    if args.tasks:
+        import ray_tpu_torch as rt
+
+        rt.init(num_cpus=TASK_CPUS, num_gpus=0)
+        try:
+            rates = task_bursts(rt, args.tasks)
+        finally:
+            rt.shutdown()
+        print(json.dumps({"task_bursts": rates, "tasks": args.tasks, "cpus": TASK_CPUS,
+                          "host_cores": os.cpu_count()}), flush=True)
+        return 0
     cuda = args.device == "cuda"
     if cuda and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to rehearse on the CPU")

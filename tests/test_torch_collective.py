@@ -1,7 +1,10 @@
 """The port's out-of-graph collectives (`ray_tpu_torch.util.collective`)
 against the reference's (`ray_tpu.util.collective`).
 
-tests/test_collective.py's cases on both runtimes; then every op of
+tests/test_collective.py's cases on both runtimes, and on the port with
+its ranks as tasks, as the reference's file runs them (on leased
+workers, where the reference's submitter can queue one rank behind
+another and hang); then every op of
 groups of 2 and 3 actors on inputs made from a seed: numpy inputs give
 what the reference gives, bit for bit; bfloat16 and float32 tensors give
 tensors of their dtype on their device, equal to torch's own reduction
@@ -82,9 +85,10 @@ def _collective(runtime):
 
 class _Rank:
     """One member of every group: an actor, so that the members of a
-    group run at once. A group of tasks can deadlock on both runtimes:
-    the head may queue one rank's task behind another's on the same
-    worker, where that one blocks in the collective forever."""
+    group run at once. A group of tasks can deadlock on the reference's
+    runtime: its submitter may queue one rank's task behind another's on
+    the same leased worker, where that one blocks in the collective
+    forever (the port's cases of tasks are below)."""
 
     def __init__(self, runtime):
         self.rt = importlib.import_module(runtime)
@@ -201,6 +205,202 @@ def test_collective_ops(ranks, runtime):
         assert gathered == [0, 1, 2]
         assert b == 42.0
         assert shard == [[0.0, 6.0], [12.0], [18.0]][rank]
+
+
+def _warm_leases(n):
+    """Idle CPU workers this process can lease, as after any burst of tasks:
+    the ranks' tasks then go to leased workers rather than through the
+    head (the first call of a function registers it through the head)."""
+
+    @ray_tpu_torch.remote
+    def noop(i):
+        return i
+
+    assert ray_tpu_torch.get([noop.remote(i) for i in range(n)],
+                             timeout=GET_TIMEOUT_S) == list(range(n))
+
+
+def test_collective_ops_in_tasks_on_the_port(ranks):
+    """tests/test_collective.py::test_collective_ops with its ranks as
+    tasks. The submitter used to queue up to 16 tasks on one leased worker,
+    so rank 2 waited behind rank 1, which waited for rank 2; a leased
+    worker now takes one task at a time (the reference's runtime keeps
+    the queue: pinned)."""
+
+    def worker(rank, world, value):
+        from ray_tpu_torch.util import collective as col
+
+        col.init_collective_group(world, rank, group_name="g1_tasks")
+        reduced = col.allreduce(np.full((4,), value, np.float32), group_name="g1_tasks")
+        gathered = col.allgather(np.array([rank], np.int32), group_name="g1_tasks")
+        bcast = col.broadcast(
+            np.array([42.0]) if rank == 0 else None, src_rank=0, group_name="g1_tasks"
+        )
+        col.barrier(group_name="g1_tasks")
+        return reduced.tolist(), [int(x[0]) for x in gathered], float(bcast[0])
+
+    _warm_leases(8)
+    world = 3
+    f = ray_tpu_torch.remote(worker)
+    results = ray_tpu_torch.get(
+        [f.remote(r, world, float(r + 1)) for r in range(world)], timeout=GET_TIMEOUT_S
+    )
+    for reduced, gathered, b in results:
+        assert reduced == [6.0, 6.0, 6.0, 6.0]  # 1+2+3
+        assert gathered == [0, 1, 2]
+        assert b == 42.0
+
+
+def test_reducescatter_in_tasks_on_the_port(ranks):
+    """tests/test_collective.py::test_reducescatter with its ranks as
+    tasks, on leased workers as above."""
+
+    def worker(rank, world):
+        from ray_tpu_torch.util import collective as col
+
+        col.init_collective_group(world, rank, group_name="rs_tasks")
+        shard = col.reducescatter(np.arange(4, dtype=np.float32), group_name="rs_tasks")
+        return shard.tolist()
+
+    _warm_leases(8)
+    f = ray_tpu_torch.remote(worker)
+    out = ray_tpu_torch.get([f.remote(r, 2) for r in range(2)], timeout=GET_TIMEOUT_S)
+    # sum = [0,2,4,6]; rank0 gets [0,2], rank1 [4,6]
+    assert out == [[0.0, 2.0], [4.0, 6.0]]
+
+
+def test_a_leased_worker_takes_one_task_at_a_time_on_the_port_only(clusters):
+    """The departure behind the two tests above, pinned: the reference's
+    submitter queues up to 16 tasks on a leased worker, the port's one, and
+    the rest of a burst waits at the submitter (the two tests below). So
+    a burst of tasks that each wait until all have started ends on the
+    port."""
+    from ray_tpu._private import client as reference_client
+    from ray_tpu_torch._private import client as port_client
+
+    assert reference_client._LEASE_PIPELINE_MAX == 16
+    assert port_client._LEASE_PIPELINE_MAX == 1
+
+    @ray_tpu_torch.remote
+    class Gate:
+        def __init__(self, n):
+            self.n, self.arrived = n, 0
+
+        def arrive(self):
+            self.arrived += 1
+
+        def all_here(self):
+            return self.arrived >= self.n
+
+    def member(gate):
+        import time
+
+        import ray_tpu_torch as rt
+
+        rt.get(gate.arrive.remote())
+        while not rt.get(gate.all_here.remote()):
+            time.sleep(0.01)
+        return True
+
+    _warm_leases(8)
+    gate = Gate.remote(3)
+    f = ray_tpu_torch.remote(member)
+    try:
+        assert ray_tpu_torch.get([f.remote(gate) for _ in range(3)],
+                                 timeout=GET_TIMEOUT_S) == [True] * 3
+    finally:
+        ray_tpu_torch.kill(gate)
+
+
+def _drop_warm_leases(client):
+    """Give back every lease this process holds, as a cold start."""
+    with client._lease_lock:
+        leases = [lease for pool in client._leases.values() for lease in pool]
+        client._leases.clear()
+        client._lease_grow_hold_until.clear()
+        for lease in leases:
+            lease["returned"] = True
+    for lease in leases:
+        lease["conn"].close()
+        client._send_lease_return(lease["worker_id"], lease.get("raylet", False))
+
+
+def test_a_burst_past_the_pool_waits_at_the_owner_for_leases_on_the_port(
+    clusters, monkeypatch
+):
+    """More tasks than workers: the rest wait in the submitter's backlog and
+    go to leases as they drain, none through the head."""
+    from ray_tpu_torch._private.worker import global_client
+
+    client = global_client()
+
+    @ray_tpu_torch.remote
+    def double(i):
+        return 2 * i
+
+    _warm_leases(8)
+    queued, via_head = [], []
+    queue, submit = client._queue_leased, client.submit
+    monkeypatch.setattr(client, "_queue_leased", lambda *a: queued.append(1) or queue(*a))
+    monkeypatch.setattr(client, "submit", lambda spec: via_head.append(1) or submit(spec))
+    n = 300
+    assert ray_tpu_torch.get([double.remote(i) for i in range(n)],
+                             timeout=GET_TIMEOUT_S) == [2 * i for i in range(n)]
+    assert queued and not via_head
+    assert not any(client._lease_backlog.values())
+
+
+def test_stalled_leases_hand_their_backlog_to_the_head_on_the_port(clusters, monkeypatch):
+    """A pool that cannot grow, whose one lease runs a task that waits for
+    the tasks queued behind it: once the lease has stalled, the backlog goes
+    through the head, which runs it on other workers."""
+    from ray_tpu_torch._private.worker import global_client
+
+    client = global_client()
+    acquire = client._acquire_lease
+
+    def one_lease(key, resources):
+        with client._lease_lock:
+            held = len(client._leases.get(key, ()))
+        return acquire(key, resources) if held == 0 else None
+
+    handed = []
+    via_head = client._submit_via_head
+    monkeypatch.setattr(client, "_acquire_lease", one_lease)
+    monkeypatch.setattr(client, "_submit_via_head",
+                        lambda spec: handed.append(spec.name) or via_head(spec))
+
+    @ray_tpu_torch.remote
+    class Gate:
+        def __init__(self, n):
+            self.n, self.arrived = n, 0
+
+        def arrive(self):
+            self.arrived += 1
+
+        def all_here(self):
+            return self.arrived >= self.n
+
+    def member(gate):
+        import time
+
+        import ray_tpu_torch as rt
+
+        rt.get(gate.arrive.remote())
+        while not rt.get(gate.all_here.remote()):
+            time.sleep(0.01)
+        return True
+
+    gate = Gate.remote(3)
+    ray_tpu_torch.get(gate.all_here.remote(), timeout=GET_TIMEOUT_S)
+    _drop_warm_leases(client)
+    f = ray_tpu_torch.remote(member)
+    try:
+        assert ray_tpu_torch.get([f.remote(gate) for _ in range(3)],
+                                 timeout=GET_TIMEOUT_S) == [True] * 3
+    finally:
+        ray_tpu_torch.kill(gate)
+    assert handed == ["member", "member"]
 
 
 # ------------------------------------------------------- every op, every kind

@@ -456,6 +456,23 @@ def test_memory_budget_bounds_the_peak(clusters, runtime):
     assert peaks[1] <= budget + 2 * ROWS_PER_BLOCK * ROW_BYTES, peaks
 
 
+@pytest.mark.parametrize("runtime", sorted(RUNTIMES))
+def test_an_op_runs_one_task_until_its_first_output_size_is_known(runtime):
+    """The departure behind the bound above, pinned: under a budget the
+    reference admits a second task on the input's size alone; the port
+    waits for the first task's output, since a map that grows its blocks
+    (8 KiB rows from 8-byte ids above) would otherwise overshoot the budget
+    by every block that completes out of order."""
+    manager = _sub(MODULES[runtime], "_resource_manager").ResourceManager(
+        6 * ROWS_PER_BLOCK * ROW_BYTES, 1)
+    guess = manager.estimate_output(0, 128.0)
+    assert manager.can_launch(0, guess)
+    manager.on_launch(0, guess)
+    assert manager.can_launch(0, guess) == (runtime == "ray_tpu")
+    manager.on_task_done(0, guess, float(ROWS_PER_BLOCK * ROW_BYTES))
+    assert manager.can_launch(0, manager.estimate_output(0, 128.0))
+
+
 def test_memory_budget_env_is_the_ports_own(clusters, monkeypatch):
     """A budget so tight that only the progress guarantee advances: the
     port reads RAY_TPU_TORCH_DATA_MEMORY_BUDGET, not the reference's name,

@@ -9,6 +9,11 @@
   close() raises or answers "absent" where it used a freed store and
   crashed the process: a store closed under threads hammering it, in a
   subprocess so a crash fails the test instead of the run.
+- A function's first call ships it with its submit through the head; a
+  later call on a leased worker can ask the head for the function before
+  the head has read that submit, and fails with "not found in GCS". The
+  port registers a function with the head, and waits for the answer,
+  before its first call is submitted.
 
 Every test has a deadline after which it fails instead of hanging.
 """
@@ -275,3 +280,45 @@ def test_a_store_closed_under_hammering_threads_never_crashes():
         pytest.skip("no native store here")
     assert out.returncode == 0, (out.returncode, out.stdout, out.stderr[-2000:])
     assert out.stdout.strip() == "OK"
+
+
+@pytest.fixture
+def small_cluster():
+    ray_tpu_torch.init(num_cpus=4, ignore_reinit_error=True)
+    try:
+        yield
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_a_leased_call_never_reaches_a_worker_before_the_head_knows_its_function(
+    small_cluster, monkeypatch
+):
+    """The head reads submits late; a new function's calls all succeed, and
+    the head knew the function when its first call returned."""
+    from ray_tpu_torch._private.worker import _global
+
+    gcs = _global.node.gcs
+
+    @ray_tpu_torch.remote
+    def warm(i):
+        return i
+
+    # Idle workers this process can lease, as after any burst.
+    assert ray_tpu_torch.get([warm.remote(i) for i in range(8)], timeout=60) == list(range(8))
+    slow_submit = gcs._h_submit_task
+
+    def late(state, msg):
+        time.sleep(0.5)
+        slow_submit(state, msg)
+
+    monkeypatch.setattr(gcs, "_h_submit_task", late)
+
+    @ray_tpu_torch.remote
+    def fresh(i):
+        return i * 2
+
+    first = fresh.remote(0)
+    assert fresh._function_id in gcs.functions
+    rest = [fresh.remote(i) for i in range(1, 4)]
+    assert ray_tpu_torch.get([first] + rest, timeout=60) == [0, 2, 4, 6]

@@ -207,8 +207,13 @@ def test_both_runtimes_at_once_in_one_process():
 
 
 def test_port_imports_nothing_of_the_reference():
+    serve = ", ".join(["ray_tpu_torch.serve", "ray_tpu_torch.serve.schema"] + [
+        f"ray_tpu_torch.serve._private.{m}" for m in (
+            "common", "long_poll", "autoscaling_state", "deployment_state",
+            "application_state", "replica", "controller", "router", "proxy", "grpc_proxy")])
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.train, ray_tpu_torch.tune, "
-            "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert; "
+            "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert, "
+            f"{serve}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('ray_tpu', 'jax', 'flax', 'optax', 'orbax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -475,3 +480,30 @@ def test_profile_runtime_rehearses_on_the_cpu(capsys):
             assert any(t["thread"] == result["thread"] for t in usage["threads"])
     # The trainer's loop runs in a thread of the worker, not in its main thread.
     assert out["trainer_0"]["thread"] != "MainThread"
+
+
+def test_profile_runtime_steps_the_cpu_rehearsal_on_one_thread(monkeypatch):
+    """The rehearsal's steps run on one intra-op thread, and the process's
+    pool size comes back after. With a pool of every core, each of the
+    suite's parallel workers spun against the others, and the test above
+    ran eight times slower on a loaded host (past its deadline)."""
+    from ray_tpu_torch import bench, profile_runtime
+
+    seen = []
+    real = bench.bench_model
+
+    def counting(*args, **kwargs):
+        seen.append(torch.get_num_threads())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(bench, "bench_model", counting)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        out = profile_runtime.build_and_step(
+            {"model": "llama-tiny", "batch": 1, "seq": 16, "device": "cpu"})
+        assert torch.get_num_threads() == 2
+    finally:
+        torch.set_num_threads(threads)
+    assert seen == [1] * profile_runtime.ROUNDS
+    assert len(out["rounds"]) == profile_runtime.ROUNDS
