@@ -123,14 +123,69 @@ def gpt_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def rl_module_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """An RLlib module's parameters: the reference's `{"pi": ..., "vf":
-    ...}` or `{"q": ...}`, each one flax MLP (`{"params": {"Dense_i":
-    {"kernel", "bias"}}}`), to the state dict of the port's
-    `init_params` (`<head>.layers.i.weight` [out, in] and `.bias`)."""
+    ...}`, `{"q": ...}` or SAC's `{"pi", "q1", "q2", "log_alpha"}`, each
+    head one flax MLP (`{"params": {"Dense_i": {"kernel", "bias"}}}`), to
+    the state dict of the port's `init_params` (`<head>.layers.i.weight`
+    [out, in] and `.bias`; a scalar leaf as `<head>.value`)."""
     out = {}
     for head, tree in params.items():
+        if not isinstance(tree, Mapping):
+            out[f"{head}.value"] = _tensor(tree)
+            continue
         dense = tree["params"]
         for i in range(len(dense)):
             layer = dense[f"Dense_{i}"]
             out[f"{head}.layers.{i}.weight"] = _tensor(layer["kernel"]).T.contiguous()
             out[f"{head}.layers.{i}.bias"] = _tensor(layer["bias"])
+    return out
+
+
+def _dense(layer: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(layer["kernel"]).T.contiguous(),
+            f"{prefix}.bias": _tensor(layer["bias"])}
+
+
+def _layer_norm(layer: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(layer["scale"]),
+            f"{prefix}.bias": _tensor(layer["bias"])}
+
+
+def gru_cell_params_from_flax(p: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax's `GRUCell` (`ir`, `iz`, `in` with biases; `hr`, `hz` without;
+    `hn` with one) to `torch.nn.GRUCell`'s stacked (r, z, n) weights, with
+    zeros for the hidden biases of r and z that flax does not have."""
+    gates_i, gates_h = ("ir", "iz", "in"), ("hr", "hz", "hn")
+    hn_bias = _tensor(p["hn"]["bias"])
+    zeros = torch.zeros_like(hn_bias)
+    return {
+        f"{prefix}weight_ih": torch.cat([_tensor(p[g]["kernel"]).T for g in gates_i]).contiguous(),
+        f"{prefix}weight_hh": torch.cat([_tensor(p[g]["kernel"]).T for g in gates_h]).contiguous(),
+        f"{prefix}bias_ih": torch.cat([_tensor(p[g]["bias"]) for g in gates_i]),
+        f"{prefix}bias_hh": torch.cat([zeros, zeros, hn_bias]),
+    }
+
+
+def dreamer_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's DreamerV3 nets (`{"params": {"enc_d0", "enc_ln0",
+    ..., "enc_out", "gru_in", "gru_in_ln", "gru", "prior_*", "post_*",
+    "dec_*", "rew_*", "cont_*", "actor_*", "critic_*"}}`) to the state dict
+    of the port's `DreamerNets` (`<net>.dense.i`, `<net>.norm.i`,
+    `<net>.out`, `gru_in`, `gru_in_ln`, `gru`)."""
+    p = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, tree in p.items():
+        if name == "gru":
+            out.update(gru_cell_params_from_flax(tree, "gru."))
+        elif name == "gru_in":
+            out.update(_dense(tree, "gru_in"))
+        elif name == "gru_in_ln":
+            out.update(_layer_norm(tree, "gru_in_ln"))
+        else:
+            net, part = name.rsplit("_", 1)
+            if part == "out":
+                out.update(_dense(tree, f"{net}.out"))
+            elif part.startswith("ln"):
+                out.update(_layer_norm(tree, f"{net}.norm.{part[2:]}"))
+            else:
+                out.update(_dense(tree, f"{net}.dense.{part[1:]}"))
     return out

@@ -1,12 +1,15 @@
 """ray_tpu_torch.rllib: reinforcement learning on the port's actor runtime.
 
-The port's copy of ray_tpu.rllib, as far as PPO trains. Architecture
+The port's copy of ray_tpu.rllib: PPO, DQN, IMPALA, APPO, SAC, CQL,
+MARWIL, BC and DreamerV3, multi-agent training, offline data through
+the port's Data, replay buffers and the tuned examples. Architecture
 mirrors the reference's new API stack (rllib/ — SURVEY.md §2.4):
 `EnvRunnerGroup` of CPU actors sampling gymnasium vector envs, connector
 pipelines between env and module, torch `RLModule`s, and a
 `Learner`/`LearnerGroup` whose update is eager torch on the learner's
 device: the card, unless `num_gpus_per_learner=0` asks for the CPU.
-Learners of a group average their gradients through `util.collective`.
+Learners of a group average their gradients through `util.collective`;
+a loss that samples takes its draws as an argument.
 
     from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
 

@@ -19,7 +19,6 @@ import numpy as np
 from ...tune.trainable import Trainable
 from ..core.learner_group import LearnerGroup
 from ..env.env_runner_group import EnvRunnerGroup
-from .algorithm_config import _MULTI_AGENT_QUEUED
 
 
 class Algorithm(Trainable):
@@ -63,15 +62,21 @@ class Algorithm(Trainable):
             else gym.make(self.config.env, **(self.config.env_config or {}))
         )
         if self.config.is_multi_agent:
-            probe.close()
-            raise NotImplementedError(_MULTI_AGENT_QUEUED)
-        self._module_spec = self.config.module_spec(
-            probe.observation_space, probe.action_space
-        )
+            from ..core.multi_agent_learner_group import (
+                MultiAgentLearnerGroup,
+            )
+
+            self._module_spec = self.config.multi_module_spec(probe)
+            group_cls = MultiAgentLearnerGroup
+        else:
+            self._module_spec = self.config.module_spec(
+                probe.observation_space, probe.action_space
+            )
+            group_cls = LearnerGroup
         probe.close()
         # The learners first: a learner that cannot have its card raises
         # here, before any env runner has started.
-        self.learner_group = LearnerGroup(
+        self.learner_group = group_cls(
             learner_cls=self.learner_class,
             module_spec=self._module_spec,
             config=self.learner_config(),

@@ -11,12 +11,6 @@ from typing import Any, Callable, Dict, Optional, Type, Union
 
 from ..core.rl_module import DiscretePolicyModule, RLModuleSpec
 
-# The multi-agent env runner and learner group are not in the port yet.
-_MULTI_AGENT_QUEUED = (
-    "multi-agent training (MultiAgentEnvRunner, MultiAgentLearnerGroup) is "
-    "not ported yet; ray_tpu_torch.rllib trains single-agent algorithms"
-)
-
 
 class AlgorithmConfig:
     algo_class: Optional[type] = None
@@ -213,7 +207,10 @@ class AlgorithmConfig:
             "seed": self.seed,
         }
         if self.is_multi_agent:
-            raise NotImplementedError(_MULTI_AGENT_QUEUED)
+            from ..env.multi_agent_env_runner import MultiAgentEnvRunner
+
+            cfg["runner_cls"] = MultiAgentEnvRunner
+            cfg["policy_mapping_fn"] = self.resolved_policy_mapping_fn()
         return cfg
 
     def learner_config(self) -> Dict[str, Any]:

@@ -89,7 +89,7 @@ class PPOLearner(Learner):
             off += L
         return out
 
-    def compute_loss(self, params, batch, generator) -> Tuple[Any, Dict[str, Any]]:
+    def compute_loss(self, params, batch, noise) -> Tuple[Any, Dict[str, Any]]:
         cfg = self.config
         out = self.module.forward_train(params, batch)
         logits = out[Columns.ACTION_DIST_INPUTS]

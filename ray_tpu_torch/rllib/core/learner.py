@@ -17,7 +17,13 @@ import torch
 
 
 class Learner:
-    """Subclasses implement ``compute_loss(params, batch, generator)``."""
+    """Subclasses implement ``compute_loss(params, batch, noise)``.
+
+    A loss that samples takes its random draws as the argument `noise`
+    (the reference splits a jax key inside its loss): `draw_noise(batch)`
+    makes them on the learner's device from the learner's seed, and a
+    caller may pass its own to `update`, so that two learners, or the
+    port and the reference, see the same draws."""
 
     def __init__(self, *, module_spec, config: Dict[str, Any]):
         self._module_spec = module_spec
@@ -27,6 +33,7 @@ class Learner:
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.device: Optional[torch.device] = None
         self._generator: Optional[torch.Generator] = None
+        self._noise_generator: Optional[torch.Generator] = None
         self._collective_group: Optional[str] = None
 
     # ------------------------------------------------------------- build
@@ -36,6 +43,8 @@ class Learner:
         seed = int(self.config.get("seed") or 0)
         self._generator = torch.Generator().manual_seed(seed)
         self.params = self.module.init_params(self._generator)
+        # Draws for the losses that sample, made where the loss runs.
+        self._noise_generator = torch.Generator(self.device).manual_seed(seed)
         self._np_rng = np.random.default_rng(seed)
         # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 (no eps_root).
         self.optimizer = torch.optim.Adam(
@@ -45,16 +54,29 @@ class Learner:
 
     # -------------------------------------------------------------- loss
     def compute_loss(
-        self, params, batch: Dict[str, Any], generator: torch.Generator
+        self, params, batch: Dict[str, Any], noise: Any
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
 
+    def draw_noise(self, batch: Dict[str, Any]) -> Any:
+        """The draws one step's loss takes; None for a loss that draws
+        nothing."""
+        return None
+
+    def _normal(self, *shape: int) -> torch.Tensor:
+        return torch.randn(shape, generator=self._noise_generator, device=self.device)
+
+    def _uniform(self, *shape: int) -> torch.Tensor:
+        return torch.rand(shape, generator=self._noise_generator, device=self.device)
+
     # ------------------------------------------------------------ update
-    def _update_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _update_step(self, batch: Dict[str, Any], noise: Any = None) -> Dict[str, torch.Tensor]:
         """One gradient step: loss, backward, the group's gradient mean
         (when there is a group), global-norm clip, Adam."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.compute_loss(self.params, batch, self._generator)
+        if noise is None:
+            noise = self.draw_noise(batch)
+        loss, metrics = self.compute_loss(self.params, batch, noise)
         loss.backward()
         params = [p for p in self.params.parameters() if p.grad is not None]
         if self._collective_group:
@@ -79,18 +101,27 @@ class Learner:
             p.grad.copy_(mean[offset:offset + n].view_as(p.grad))
             offset += n
 
-    def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """Run minibatch SGD over the batch; returns averaged metrics."""
-        minibatch = self.config.get("minibatch_size")
-        epochs = self.config.get("num_epochs", 1)
-        # The batch goes to the device once; minibatches are cut there.
-        batch = {
+    def device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's columns on the learner's device, copied there once;
+        dict-valued entries as they are."""
+        return {
             k: (v if isinstance(v, dict) else _column(v, self.device))
             for k, v in batch.items()
         }
+
+    def update(self, batch: Dict[str, np.ndarray], noise: Any = None) -> Dict[str, Any]:
+        """Run minibatch SGD over the batch; returns averaged metrics.
+        `noise`, where given, is the draws of the one step this update
+        takes, in place of the learner's own."""
+        minibatch = self.config.get("minibatch_size")
+        epochs = self.config.get("num_epochs", 1)
+        # The batch goes to the device once; minibatches are cut there.
+        batch = self.device_batch(batch)
         n = len(
-            next(v for v in batch.values() if not isinstance(v, dict))
+            next(v for v in batch.values() if not isinstance(v, dict) and v.ndim)
         )
+        if noise is not None and (epochs != 1 or (minibatch and minibatch < n)):
+            raise ValueError("noise is given for one step, and this update takes several")
         all_metrics: List[Dict[str, Any]] = []
         for _ in range(epochs):
             if minibatch and minibatch < n:
@@ -106,13 +137,13 @@ class Learner:
             else:
                 idxs = [None]
             for idx in idxs:
-                # dict-valued entries (e.g. a target network's weights)
-                # ride along unsliced.
+                # dict-valued entries and scalars (a coefficient that
+                # changes between updates) ride along unsliced.
                 mb = {
-                    k: (v if idx is None or isinstance(v, dict) else v[idx])
+                    k: (v if idx is None or isinstance(v, dict) or not v.ndim else v[idx])
                     for k, v in batch.items()
                 }
-                all_metrics.append(self._update_step(mb))
+                all_metrics.append(self._update_step(mb, noise))
         # float32 means, as numpy takes them over the reference's float32
         # device scalars.
         return {
@@ -176,8 +207,11 @@ def _learner_device(config: Dict[str, Any]) -> torch.device:
 
 def _column(values, device: torch.device) -> torch.Tensor:
     """A batch column on the device; floats in float32, as the reference's
-    jnp.asarray makes them."""
-    t = torch.tensor(np.asarray(values))  # a copy: the batch may be read-only
+    jnp.asarray makes them. A tensor already there stays as it is."""
+    if isinstance(values, torch.Tensor):
+        t = values
+    else:
+        t = torch.tensor(np.asarray(values))  # a copy: the batch may be read-only
     return (t.float() if t.is_floating_point() else t).to(device)
 
 

@@ -12,9 +12,10 @@ learning CartPole with the reference's threshold and budget, remote env
 runners, fault tolerance, checkpoints, two learners kept in lockstep by
 the port's `util.collective`, and PPO under the port's Tune. The pinned
 divergences: a fresh module's weights are drawn from a torch.Generator
-(not jax's key), the update is eager torch (not jitted), a learner given
-a GPU that sees no card raises, and multi-agent training is not ported
-yet.
+(not jax's key), the update is eager torch (not jitted), and a learner
+given a GPU that sees no card raises. Multi-agent training, the
+off-policy, offline and asynchronous algorithms and DreamerV3 have
+files of their own (`test_torch_rllib_*.py`).
 
 The port's runtime runs as one module-scoped cluster; every test has a
 deadline after which it fails instead of hanging, and every `get` a
@@ -61,6 +62,17 @@ def _deadline():
     yield
     signal.alarm(0)
     signal.signal(signal.SIGALRM, old)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, as the port's other RLlib test files take: the
+    whole run's workers share the host's cores (with a thread per core
+    each, PPO's learning run took 175 s of its 240 s deadline there)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -342,7 +354,7 @@ def test_the_update_is_eager_torch_where_the_reference_jits():
     assert hasattr(ref._jit_update, "lower")  # a jax.jit function
     steps = []
     step = port._update_step
-    port._update_step = lambda mb: steps.append(len(mb["obs"])) or step(mb)
+    port._update_step = lambda mb, noise=None: steps.append(len(mb["obs"])) or step(mb, noise)
     port.update(batch)
     assert steps == [64] * (len(batch["obs"]) // 64)
     assert isinstance(port.params, torch.nn.ModuleDict)
@@ -415,12 +427,6 @@ def test_building_with_the_default_learner_and_no_card_raises(cluster):
         cfg.build()
     with pytest.raises(ValueError, match="num_gpus_per_learner=0"):
         cfg.copy().learners(num_learners=1).build()
-
-
-def test_multi_agent_training_is_not_ported_yet():
-    cfg = PPOConfig().environment("CartPole-v1").multi_agent(policies={"p0": None})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cfg.env_runner_config(None)
 
 
 # ------------------------------------------- tests/test_rllib.py, on the port
