@@ -203,7 +203,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    examples run with their learners on the card: `pendulum_sac.yaml`
    must clear its bar, and `cartpole_dqn.yaml`'s best is printed (the
    reference's own run of it stays below its bar); where it is not, the
-   phase says so.
+   phase says so;
+25. a job on an autoscaled GPU node: `python -m ray_tpu_torch start
+   --head --num-cpus 2 --num-gpus 0 --port 0` (a head with no GPU, under
+   a temp root of the phase's own), `init(address="auto")` here and a v2
+   `Reconciler` over `GpuHostProvider(MockGpuHostApi(), ...)` whose one
+   group type is one host of 4 CPUs and this card (idle timeout
+   JOB_IDLE_TIMEOUT_S); `python -m ray_tpu_torch submit --wait
+   --runtime-env-json ... -- python3 chip_smoke.py --job-driver`, whose
+   driver (`init(address="auto")`, no torch) runs one `num_gpus=1` task
+   that takes phase 5's llama-1b steps with K1-K3 counted in its worker.
+   Checks: the job SUCCEEDED; the task ran on the node the reconciler
+   launched (label `v2:<instance>:h0`), not the head, with
+   CUDA_VISIBLE_DEVICES "0" and this card; K1-K3 launched 2L/L/L per
+   step; the losses within TRAINER_LOSS_RTOL of phase 5's; while the job
+   ran, `list_nodes()`, `python -m ray_tpu_torch list nodes` and (where
+   aiohttp is installed) the dashboard's /api/nodes and /api/jobs show
+   the node alive with GPU 1 and the job; `summary tasks` counts the
+   task finished; the group scaled down within JOB_IDLE_TIMEOUT_S +
+   JOB_SCALE_DOWN_SLACK_S of the job's end and the node reads dead;
+   after `python -m ray_tpu_torch stop` the head has exited and no port
+   process or `rtpt_` pool that the phase started is left. Prints the
+   seconds from submit to the node's registration, to the task's first
+   step and to the job's end, the task's step beside phase 5's, the
+   seconds from the job's end to scale-down, and whether the dashboard
+   ran.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -346,6 +370,14 @@ SERVE_LOGITS_REL = 1e-4
 SERVE_TIMEOUT_S = 300
 # Phase 23 times this process's forward of each batch shape over this many runs.
 SERVE_FORWARD_REPEATS = 3
+# Phase 25: a job on an autoscaled GPU node. The reconciler's idle
+# timeout, and the time after the job's end within which the node's
+# group must be gone (the drain of an idle node ends at the daemon's next
+# heartbeat). The job's task builds llama-1b and takes phase 5's steps.
+JOB_IDLE_TIMEOUT_S = 5.0
+JOB_SCALE_DOWN_SLACK_S = 30.0
+JOB_TIMEOUT_S = 300
+JOB_RESULT_TAG = "JOB_RESULT "
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -2682,7 +2714,306 @@ def phase_rllib(card):
               f"{time.perf_counter() - t0:.1f} s; {card}: ok", flush=True)
 
 
+def job_train_task():
+    """Phase 25's task, in a num_gpus=1 worker of the node the autoscaler
+    added: phase 18's method (phase 5's llama-1b, seed and batches through
+    `bench_model`), with K1-K3 counted in this process."""
+    import os
+    import time
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS, bench_model
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+    from ray_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    A.reset_launch_counts()
+    first_step = time.time()
+    r = bench_model(model, BATCH, SEQ, TIMED_STEPS, H100_BF16_PEAK_FLOPS)
+    return {"losses": r["losses"], "step_ms": r["step_ms"], "launches": dict(A.LAUNCHES),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "card": torch.cuda.get_device_name(), "node_id": os.environ.get("RAY_TPU_TORCH_NODE_ID"),
+            "first_step": first_step}
+
+
+def job_driver() -> int:
+    """`chip_smoke.py --job-driver`, phase 25's job entrypoint: a driver of
+    the standalone head (`init(address="auto")`) that runs `job_train_task`
+    as one `num_gpus=1` task and prints its result. It runs on the head's
+    node, in a process that imports no torch and touches no card."""
+    import ray_tpu_torch as rt
+
+    rt.init(address="auto")
+    try:
+        task = rt.remote(num_gpus=1)(job_train_task)
+        out = rt.get(task.remote(), timeout=JOB_TIMEOUT_S)
+    finally:
+        rt.shutdown()
+    print(JOB_RESULT_TAG + json.dumps(out), flush=True)
+    return 0
+
+
+def _port_processes():
+    """Pids of this machine's processes of the port's runtime: heads
+    (`python -m ray_tpu_torch start`), node daemons, zygotes and workers."""
+    out = set()
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")
+        except OSError:
+            continue
+        if b"ray_tpu_torch" in cmd and int(pid) != os.getpid():
+            out.add(int(pid))
+    return out
+
+
+def _port_pools():
+    return {p for p in os.listdir("/dev/shm") if p.startswith("rtpt_")}
+
+
+def phase_job(card, in_process):
+    """Phase 25: a standalone head with no GPU, the v2 reconciler adding a
+    GPU host for a job's num_gpus=1 task, the job run through the CLI and
+    watched through the state API, the CLI and the dashboard, then the
+    host scaled down and everything stopped. Returns the task's launches."""
+    import shutil
+    import socket
+    import subprocess
+    import threading
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler.gpu_hosts import GpuHostProvider, HostGroupType, MockGpuHostApi
+    from ray_tpu_torch.autoscaler.v2 import RAY_RUNNING, TERMINATED, Reconciler
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.util.state import list_nodes
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs_before, pools_before = _port_processes(), _port_pools()
+    # A temp root of the phase's own: the head's session file, logs and
+    # sockets lie under it, and no other head on the machine is read.
+    root = tempfile.mkdtemp(prefix="rtpt")
+    saved_root = os.environ.get("RAY_TPU_TORCH_TEMP_DIR")
+    os.environ["RAY_TPU_TORCH_TEMP_DIR"] = root
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+
+    def cli(*args, timeout=120):
+        return subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], env=env, cwd=repo,
+                              capture_output=True, text=True, timeout=timeout)
+
+    head_log = open(os.path.join(root, "head.out"), "w")
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "start", "--head", "--num-cpus", "2",
+         "--num-gpus", "0", "--port", "0"],
+        env=env, cwd=repo, stdout=head_log, stderr=subprocess.STDOUT)
+    api = MockGpuHostApi(log_dir=root)
+    stop = threading.Event()
+    loop_errors, events = [], {}
+    thread = None
+    try:
+        # 1. the head, up once `status` answers
+        t0 = time.perf_counter()
+        while True:
+            status = cli("status")
+            if status.returncode == 0 and "Cluster status" in status.stdout:
+                break
+            if head.poll() is not None:
+                with open(head_log.name) as f:
+                    check(False, f"the head exited: {f.read()[-4000:]}")
+            check(time.perf_counter() - t0 < 60, f"status never answered: {status.stderr[-2000:]}")
+            time.sleep(0.5)
+        head_up_s = time.perf_counter() - t0
+        rt.init(address="auto")
+        head_res = rt.cluster_resources()
+        check(head_res == {"CPU": 2.0}, f"the head holds {head_res}, not 2 CPUs and no GPU")
+
+        # 2. the reconciler, over one host of one GPU: this machine's card
+        provider = GpuHostProvider(
+            api, {"h100": HostGroupType(hosts=1, host_resources={"CPU": 4.0, "GPU": 1.0})})
+        rec = Reconciler(provider.node_types(), provider, idle_timeout_s=JOB_IDLE_TIMEOUT_S)
+
+        def reconcile():
+            while not stop.is_set():
+                try:
+                    rec.step()
+                except Exception as e:  # noqa: BLE001 - checked below, never swallowed
+                    loop_errors.append(repr(e))
+                    return
+                if rec.im.instances(RAY_RUNNING):
+                    events.setdefault("running", time.perf_counter())
+                if rec.im.instances(TERMINATED):
+                    events.setdefault("terminated", time.perf_counter())
+                stop.wait(0.25)
+
+        rec.step()  # the autoscaler announces itself before the demand
+        thread = threading.Thread(target=reconcile, name="phase25-reconciler", daemon=True)
+        thread.start()
+        dashboard = None
+        try:
+            import aiohttp  # noqa: F401
+        except ImportError:
+            print("aiohttp is not installed: phase 25 runs without the dashboard", flush=True)
+        else:
+            from ray_tpu_torch.dashboard import start_dashboard
+
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                dash_port = s.getsockname()[1]
+            dashboard = start_dashboard(port=dash_port)
+
+        def dash_get(path):
+            with urllib.request.urlopen(f"{dashboard}{path}", timeout=30) as r:
+                return json.loads(r.read())
+
+        # 3. the job, through the CLI, with the repo on its PYTHONPATH
+        submit_wall, t_submit = time.time(), time.perf_counter()
+        sub = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "submit", "--wait", "--runtime-env-json",
+             json.dumps({"env_vars": {"PYTHONPATH": repo}}), "--",
+             "python3", os.path.join(repo, "chip_smoke.py"), "--job-driver"],
+            env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        first = sub.stdout.readline()
+        check(first.startswith("submitted "), f"submit said {first!r}")
+        job_id = first.split()[1].rstrip(":")
+        while "running" not in events:
+            check(not loop_errors, f"the reconciler failed: {loop_errors}")
+            if sub.poll() is not None:
+                check(False, f"the job ended before a GPU node joined: {sub.stdout.read()[-4000:]}")
+            check(time.perf_counter() - t_submit < JOB_TIMEOUT_S, "no GPU node joined")
+            time.sleep(0.1)
+        node_s = events["running"] - t_submit
+        inst, = rec.im.instances(RAY_RUNNING)
+        label = f"v2:{inst.instance_id}:h0"
+
+        # 4. while the job runs: the node through the state API, the CLI
+        # and the dashboard
+        node, = [n for n in list_nodes() if n["label"] == label]
+        check(node["alive"] and node["total"].get("GPU") == 1.0,
+              f"the state API lists the GPU node as {node}")
+        listed = cli("list", "nodes")
+        row = [line for line in listed.stdout.splitlines() if label in line]
+        check(listed.returncode == 0 and len(row) == 1 and "True" in row[0]
+              and "'GPU': 1.0" in row[0], f"`list nodes` printed {listed.stdout!r}")
+        if dashboard is not None:
+            dash_nodes = [n for n in dash_get("/api/nodes") if n["label"] == label]
+            check(len(dash_nodes) == 1 and dash_nodes[0]["alive"]
+                  and dash_nodes[0]["total"].get("GPU") == 1.0,
+                  f"the dashboard's /api/nodes shows {dash_nodes}")
+            dash_jobs = [j for j in dash_get("/api/jobs") if j["job_id"] == job_id]
+            check(len(dash_jobs) == 1, f"the dashboard's /api/jobs lacks {job_id}")
+        jobs = JobSubmissionClient()
+        running = jobs.get_job_status(job_id).value
+        check(running == "RUNNING", f"the job was {running} when the node was read, not RUNNING")
+
+        out, _ = sub.communicate(timeout=JOB_TIMEOUT_S)
+        t_end = time.perf_counter()
+        end_s = t_end - t_submit
+        check(sub.returncode == 0, f"`submit --wait` exited {sub.returncode}: {out[-4000:]}")
+        final = jobs.get_job_status(job_id).value
+        check(final == "SUCCEEDED", f"the job ended {final}")
+        lines = [line for line in jobs.get_job_logs(job_id).splitlines()
+                 if line.startswith(JOB_RESULT_TAG)]
+        check(len(lines) == 1, f"the job printed {len(lines)} result lines: {out[-4000:]}")
+        r = json.loads(lines[0][len(JOB_RESULT_TAG):])
+
+        # 5. what the task saw and did
+        check(r["node_id"] == inst.node_id.hex(),
+              f"the task ran on node {r['node_id']}, not the autoscaled {inst.node_id.hex()}: "
+              f"nodes {[(n['node_id'], n['label'], n['alive'], n.get('death_reason')) for n in list_nodes()]}")
+        check(r["visible"] == "0", f"the task's worker sees CUDA_VISIBLE_DEVICES={r['visible']!r}")
+        check(r["card"] == torch.cuda.get_device_name(0), f"the task's card is {r['card']}")
+        steps = TIMED_STEPS + 1
+        layers = CONFIGS["llama-1b"].num_layers
+        per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+        for name, k in per_step.items():
+            check(r["launches"][name] == k * steps,
+                  f"job: {name} launched {r['launches'][name]} times in {steps} steps, "
+                  f"expected {k * steps}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], in_process["losses"])]
+        check(len(rel) == steps and max(rel) <= TRAINER_LOSS_RTOL,
+              f"job losses {r['losses']} vs in-process {in_process['losses']}: relative {rel}")
+        summary = cli("summary", "tasks")
+        check(summary.returncode == 0, f"`summary tasks` failed: {summary.stderr[-2000:]}")
+        counted = json.loads(summary.stdout)["by_func_name"].get("job_train_task", {})
+        check(counted == {"FINISHED": 1}, f"`summary tasks` counts job_train_task as {counted}")
+
+        # 6. scale-down after the job
+        while "terminated" not in events:
+            check(not loop_errors, f"the reconciler failed: {loop_errors}")
+            check(time.perf_counter() - t_end < JOB_IDLE_TIMEOUT_S + JOB_SCALE_DOWN_SLACK_S,
+                  f"the GPU node was not scaled down within {JOB_IDLE_TIMEOUT_S} + "
+                  f"{JOB_SCALE_DOWN_SLACK_S} s of the job's end: {rec.summary()}")
+            time.sleep(0.1)
+        down_s = events["terminated"] - t_end
+        dead = [n for n in list_nodes() if n["label"] == label]
+        check(len(dead) == 1 and not dead[0]["alive"], f"after scale-down the node reads {dead}")
+        check(api.list_groups() == {}, f"hosts left after scale-down: {api.list_groups()}")
+    except BaseException:
+        # The consoles of the head and of every host, for the failure
+        # being raised.
+        for log in sorted(os.listdir(root)):
+            if log.endswith((".out", ".log")):
+                with open(os.path.join(root, log), errors="replace") as f:
+                    print(f"--- {log}:\n{f.read()[-3000:]}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=30)
+        rt.shutdown()
+        api.shutdown()
+        # 7. stop: the head exits and takes its workers with it
+        stopped = cli("stop", timeout=60)
+        try:
+            head.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            head.kill()
+            head.wait(timeout=30)
+            raise RuntimeError(f"the head did not exit after `stop`: {stopped.stdout}")
+        head_log.close()
+        if saved_root is None:
+            os.environ.pop("RAY_TPU_TORCH_TEMP_DIR", None)
+        else:
+            os.environ["RAY_TPU_TORCH_TEMP_DIR"] = saved_root
+    left, deadline = None, time.perf_counter() + 30
+    while time.perf_counter() < deadline:
+        left = (_port_processes() - procs_before, _port_pools() - pools_before)
+        if left == (set(), set()):
+            break
+        time.sleep(0.5)
+    check(left == (set(), set()), f"left after `stop`: processes {left[0]}, pools {left[1]}")
+    shutil.rmtree(root, ignore_errors=True)
+    first_step_s = r["first_step"] - submit_wall
+    print(f"job on an autoscaled GPU node ({card}): head up in {head_up_s:.1f} s with "
+          f"{head_res} (no GPU); submit to the GPU node's registration {node_s:.1f} s, to the "
+          f"task's first step {first_step_s:.1f} s, to the job's end {end_s:.1f} s", flush=True)
+    print(f"job: task on node {label} (not the head), CUDA_VISIBLE_DEVICES={r['visible']}, "
+          f"{r['card']}; llama-1b b{BATCH} s{SEQ} bf16 losses {[round(x, 4) for x in r['losses']]} "
+          f"against in-process {[round(x, 4) for x in in_process['losses']]} (largest relative "
+          f"difference {max(rel):.2e}, rtol {TRAINER_LOSS_RTOL}); step {r['step_ms']:.1f} ms in "
+          f"the job's task against {in_process['step_ms']:.1f} ms in process; launches "
+          f"{r['launches']} ({per_step} per step)", flush=True)
+    print(f"job: the node alive with GPU 1 in list_nodes() and `list nodes` while the job ran; "
+          f"dashboard {'ran: /api/nodes and /api/jobs showed the node and the job' if dashboard else 'did not run (no aiohttp)'}; "
+          f"`summary tasks` job_train_task {counted}; scaled down {down_s:.1f} s after the job's "
+          f"end (idle timeout {JOB_IDLE_TIMEOUT_S} s), the node dead; after `stop` no port "
+          f"process or rtpt_ pool left: ok", flush=True)
+    return {name: r["launches"][name] for name in per_step}
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--job-driver"]:
+        return job_driver()
     import torch
 
     if not torch.cuda.is_available():
@@ -2823,6 +3154,8 @@ def main() -> int:
         phase_rllib(card)
     finally:
         rt.shutdown()
+    # 25. a job on an autoscaled GPU node, K1-K3 counted in its task
+    job_launches = phase_job(card, llama_in_process)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.
@@ -2838,6 +3171,8 @@ def main() -> int:
         })
         if name == "flash_fwd":
             kernels[-1]["serve_launches"] = serve_launches
+        if name in job_launches:
+            kernels[-1]["job_launches"] = job_launches[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

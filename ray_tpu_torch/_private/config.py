@@ -222,3 +222,12 @@ def temp_root() -> str:
     follows ``TMPDIR``."""
     return os.environ.get("RAY_TPU_TORCH_TEMP_DIR") or os.path.join(
         tempfile.gettempdir(), "ray_tpu_torch")
+
+
+def session_file() -> str:
+    """The file a standalone head (``python -m ray_tpu_torch start
+    --head``) writes its address and key to, and ``init(address="auto")``
+    reads: ``latest_session.json`` under the temp root. The reference
+    keeps its own under its own root, so the two never read each
+    other's."""
+    return os.path.join(temp_root(), "latest_session.json")

@@ -153,6 +153,10 @@ class WorkerHandle:
     packed: Dict[bytes, TaskSpec] = field(default_factory=dict)
     # Resources held while leased to a client (direct task transport).
     lease_resources: Optional[Dict[str, float]] = None
+    # A node daemon's own pool worker (its local lease authority): the
+    # GCS holds it as LEASED for good and never schedules onto it;
+    # whether a client holds it shows only in the daemon's heartbeat.
+    local_only: bool = False
 
 
 @dataclass
@@ -210,6 +214,9 @@ class NodeState:
     draining: bool = False
     drain_deadline: float = 0.0
     drain_reason: str = ""
+    # Monotonic time the drain began: the daemon's local lease counts
+    # are trusted once a heartbeat sent after it has arrived.
+    drain_started: float = 0.0
     # CPUs the node's daemon has leased to local clients, synced via
     # heartbeats (the daemon's local dispatch authority).
     local_cpus_in_use: float = 0.0
@@ -874,6 +881,7 @@ class GcsServer:
                     # the directory/worker bookkeeping — never schedules
                     # onto it.
                     w.state = W_LEASED
+                    w.local_only = True
                 else:
                     w.state = W_IDLE
                     node.pool.add(wid)
@@ -2889,7 +2897,13 @@ class GcsServer:
         autoscaler.proto:315). Polling this IS the autoscaler
         announcing itself: capacity becomes elastic, so over-capacity
         PGs queue as demand (self-healing across head restarts,
-        unlike a one-shot flag)."""
+        unlike a one-shot flag).
+
+        A node that holds the primary copy of a live object (in its
+        store or spilled to its disk) is not idle, as in upstream Ray:
+        scaling it down would lose the object under its owner, who
+        could only rebuild it by running its task again. The reference
+        counts such a node idle."""
         with self._lock:
             self.autoscaling_hint = True
             demands = [dict(spec.resources) for spec in self._pending]
@@ -2898,6 +2912,14 @@ class GcsServer:
                 for pg in self.placement_groups.values()
                 if pg.state == "PENDING"
             ]
+            # The objects that die with their node (_handle_node_death).
+            holding = {
+                e.node_id.binary()
+                for e in self.objects.values()
+                if e.status == READY
+                and e.node_id is not None
+                and (e.segment is not None or e.spilled_path is not None)
+            }
             idle_nodes = []
             for n in self.nodes.values():
                 if not n.alive or n.label == "head":
@@ -2905,7 +2927,7 @@ class GcsServer:
                 busy = any(
                     w.node_id == n.node_id and (w.inflight or w.actor_id)
                     for w in self.workers.values()
-                )
+                ) or n.node_id.binary() in holding
                 if not busy and _fits(n.available, n.total):
                     idle_nodes.append(n.node_id.binary())
         state["peer"].reply(
@@ -4616,6 +4638,7 @@ class GcsServer:
             node.drain_deadline = time.time() + float(
                 msg.get("deadline_s", 30.0)
             )
+            node.drain_started = time.monotonic()
             conn = node.conn
         if conn is not None:
             # Tell the daemon so its local-lease authority stops
@@ -4638,12 +4661,23 @@ class GcsServer:
                 # non-empty inflight map) OR a leased worker, whose
                 # tasks ride the direct transport and are invisible
                 # here — leases return on client idle timeout, so this
-                # converges (or the deadline forces the issue).
+                # converges (or the deadline forces the issue). The
+                # daemon's own pool workers stay LEASED here for good,
+                # so they count only while its heartbeat, sent after
+                # the drain began (no new local grants since), reports
+                # a local lease held; the reference counts them always
+                # and so waits out every daemon node's deadline.
+                local_held = (
+                    node.local_cpus_in_use > 0
+                    or node.local_gpus_in_use > 0
+                    or node.last_heartbeat <= node.drain_started
+                )
                 busy = any(
                     w.node_id == node.node_id
                     and (
                         w.state == W_BUSY
-                        or w.state == W_LEASED
+                        or (w.state == W_LEASED
+                            and (local_held or not w.local_only))
                         or w.inflight
                     )
                     for w in self.workers.values()

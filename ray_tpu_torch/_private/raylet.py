@@ -58,6 +58,13 @@ class NodeDaemon:
         self._lock = threading.Lock()
         self._shutdown = threading.Event()
         self._stopped = threading.Event()  # set once shutdown() has finished
+        # Set once this constructor has finished. The head may push work
+        # (a spawn for demand that was waiting for this node) the moment
+        # it has registered the node, before the attributes those pushes
+        # need exist; the reader thread holds them until then (the
+        # reference's raises AttributeError there, and the lost conn
+        # costs the node its first incarnation).
+        self._ready = threading.Event()
         self._rejoining = False
         self._draining = False
         # Zombie self-fence in progress (membership protocol): suppresses
@@ -199,6 +206,7 @@ class NodeDaemon:
         ).start()
         for _ in range(min(2, int(self.resources.get("CPU", 0)))):
             self._spawn_local_worker()
+        self._ready.set()
 
     def _publish_logs(self, entries):
         try:
@@ -216,6 +224,7 @@ class NodeDaemon:
 
     # raylint: dispatch-only
     def _on_push(self, msg):
+        self._ready.wait()
         mtype = msg.get("type")
         if mtype == "spawn_worker":
             self._spawn_worker(msg)
@@ -905,7 +914,13 @@ def main(argv=None):
     )
 
     def on_signal(signum, frame):
+        # A shutdown the head pushed may already be running on a reader
+        # thread, and then this call returns at once: the process exits
+        # only once that one has destroyed the shm pool, so wait for it
+        # before leaving (the reference exits here at once and leaves
+        # the pool behind).
         daemon.shutdown()
+        daemon.wait()
         sys.exit(0)
 
     signal.signal(signal.SIGTERM, on_signal)

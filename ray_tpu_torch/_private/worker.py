@@ -76,7 +76,9 @@ def init(
     """Start a local cluster (head) or connect to an existing one.
 
     ``address`` is the head's session socket path (from ``node.address``)
-    or ``host:port?authkey`` for a network head; None starts a new local
+    or ``host:port?authkey`` for a network head, or ``"auto"`` for the
+    head that ``python -m ray_tpu_torch start --head`` runs on this
+    machine (its session file); None starts a new local
     head in-process, as the reference does (reference:
     _private/worker.py:1225 → Node head bring-up). ``tcp_port`` (0 = any
     free port) makes the new head listen on the network so node daemons
@@ -93,6 +95,29 @@ def init(
         from . import chaos as _chaos
 
         _chaos.refresh()
+        if address == "auto":
+            # Connect to the machine's running head via its session file
+            # (written by `python -m ray_tpu_torch start --head`).
+            import json
+
+            from .config import session_file
+
+            path = session_file()
+            try:
+                with open(path) as f:
+                    info = json.load(f)
+                address = f"{info['address']}?{info['authkey']}"
+            except (FileNotFoundError, json.JSONDecodeError, KeyError):
+                raise RayTpuError(
+                    "address='auto' but no running head found "
+                    f"({path} missing or stale); run "
+                    "`python -m ray_tpu_torch start --head`"
+                ) from None
+        if address is not None and address.startswith("ray_tpu_torch://"):
+            raise RayTpuError(
+                "ray_tpu_torch:// (the thin remote driver) is not ported yet; "
+                "connect with host:port?authkey"
+            )
         transfer_addr = None
         if address is None:
             node = Node(
@@ -300,3 +325,45 @@ def drain_node(
         }
     )
     return bool(reply.get("accepted"))
+
+
+def head_tcp_address() -> Tuple[str, bytes]:
+    """The connected head's network address and key, which a node
+    daemon joins with: the in-process head's, the address this driver
+    connected to over TCP, or, for a driver on a standalone head's
+    socket (``init(address="auto")``), the TCP address in its session
+    file. Raises where the head does not listen on the network."""
+    node = _global.node
+    if node is not None:
+        if node.tcp_address:
+            return node.tcp_address, node.authkey
+        raise RayTpuError("the head does not listen on TCP; init(tcp_port=0)")
+    from . import transport
+
+    client = global_client()
+    if transport.is_tcp_address(client._address):
+        return client._address, client._authkey
+    import json
+
+    from .config import session_file
+
+    try:
+        with open(session_file()) as f:
+            info = json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        info = {}
+    if info.get("address") == client._address and info.get("tcp_address"):
+        return info["tcp_address"], bytes.fromhex(info["authkey"])
+    raise RayTpuError(
+        "the head does not listen on TCP; start it with "
+        "`python -m ray_tpu_torch start --head --port 0`"
+    )
+
+
+def head_node_id() -> bytes:
+    """The head node's id: where the job supervisors and the dashboard
+    run, as in upstream Ray, so no autoscaled node is kept busy by them."""
+    for n in nodes():
+        if n["alive"] and n.get("label") == "head":
+            return n["node_id"]
+    raise RayTpuError("the cluster has no live head node")

@@ -211,9 +211,19 @@ def test_port_imports_nothing_of_the_reference():
         f"ray_tpu_torch.serve._private.{m}" for m in (
             "common", "long_poll", "autoscaling_state", "deployment_state",
             "application_state", "replica", "controller", "router", "proxy", "grpc_proxy")])
+    tooling = [
+        "ray_tpu_torch.cluster_utils", "ray_tpu_torch.autoscaler",
+        "ray_tpu_torch.autoscaler.gpu_hosts", "ray_tpu_torch.autoscaler.gce",
+        "ray_tpu_torch.job_submission", "ray_tpu_torch.scripts.cli",
+        "ray_tpu_torch.util.state", "ray_tpu_torch.util.rpdb",
+        "ray_tpu_torch._private.head_main",
+        # Imports aiohttp only where its server starts, so it imports
+        # (and is checked) on a machine without aiohttp too.
+        "ray_tpu_torch.dashboard",
+    ]
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.train, ray_tpu_torch.tune, "
             "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert, "
-            f"{serve}; "
+            f"{serve}, {', '.join(tooling)}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('ray_tpu', 'jax', 'flax', 'optax', 'orbax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
