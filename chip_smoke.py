@@ -77,7 +77,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    shape (b1, 16 heads of 128, T 32768 global) against single-card
    `flash_attention` on the gathered tensors, o and every gradient; then
    the sequence-parallel llama-1b train step (seq 4, b1, T 32768, bf16
-   parameters, chunked loss, one step then three timed): every loss
+   parameters, chunked loss, one step then RING_TIMED_STEPS timed): every loss
    equals the same step's loss on one card from the same weights and
    ids, every rank ends with the same parameters, the losses are finite
    and fall, and K1-K3 were launched as often as the ring needs, summed
@@ -227,7 +227,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    seconds from submit to the node's registration, to the task's first
    step and to the job's end, the task's step beside phase 5's, the
    seconds from the job's end to scale-down, and whether the dashboard
-   ran.
+   ran;
+26. the rest of the surface, on a runtime of the phase's own
+   (`init(client_server_port=0)` under a temp root of its own), each
+   part held against SERVE_MODEL built once in this process (seed 0,
+   bf16) or phase 5's losses: (a) a compiled DAG of a `num_gpus=1`
+   stage holding the model, whose method returns a request's
+   last-position logits as the card's tensor, and a CPU stage taking
+   the argmax; SURFACE_REQUESTS requests drawn as phase 23's through
+   `execute`, through `submit`/`collect` with the pipe full, and through
+   `.remote()` calls on the same actors; every row within
+   SERVE_LOGITS_REL, the same next token, K1 once per layer per request
+   in stage 1 and no K2 or K3, the logits reaching stage 2 as host
+   float32 tensors, and none of the DAG's `rtpt_` segments and
+   semaphores left after `teardown()`; (b) a workflow of `make_batches`
+   (phase 5's ids), a `num_gpus=1` step taking phase 5's steps and
+   `summarize`, which fails once: `resume` runs it alone (counter files),
+   the losses within TRAINER_LOSS_RTOL of phase 5's, K1-K3 2L/L/L a step
+   in the step's worker; where aiohttp is installed, a `wait_for_event`
+   step released by a POST to the dashboard's
+   `/api/workflow/events/{key}`; (c) a thin client, `chip_smoke.py
+   --client-driver` in a process with CUDA_VISIBLE_DEVICES empty and only
+   the `ray_tpu_torch://` address, runs one `num_gpus=1` task and one
+   `num_gpus=1` actor forward of a request: host tensors within
+   SERVE_LOGITS_REL, K1 once per layer in each, and after the client
+   exits hard its actor dead and its object freed; (d) a wheel built
+   here, offline, as a pip runtime_env of a `num_gpus=1` task that
+   imports it and the system's torch, sees this card and runs K1 once
+   against its plain version; a task without the env cannot import it.
+   A stage, step, task or actor asked for the card that sees none raises.
+   Prints ms per request each way beside this process's forward, the
+   workflow's first run and resume, and the client's seconds to connect
+   and per call.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -291,7 +322,10 @@ LONGCTX_BENCH_STEPS = 10
 # Ring attention: 4 ranks share the card; llama-1b at batch 1, T 32768,
 # split into 4 shards of 8192 (16 heads of 128 each).
 RING_RANKS, RING_SEQ, RING_HEADS, RING_D = 4, 32768, 16, 128
-RING_TIMED_STEPS, RING_CHUNK = 3, 2048
+# One timed step after the warm-up: a sequence-parallel step takes about
+# 34 s through host memory, and the whole smoke must stay well inside its
+# time limit as phases are added.
+RING_TIMED_STEPS, RING_CHUNK = 1, 2048
 # Each sequence-parallel loss against the same step on one card: bf16
 # activations round at other points (the ring merges per-block o in
 # float32 and rounds once; the single kernel rounds its own o), and the
@@ -378,6 +412,16 @@ JOB_IDLE_TIMEOUT_S = 5.0
 JOB_SCALE_DOWN_SLACK_S = 30.0
 JOB_TIMEOUT_S = 300
 JOB_RESULT_TAG = "JOB_RESULT "
+# Phase 26: the rest of the surface. Requests drawn as phase 23 draws
+# them; every logits row held to SERVE_LOGITS_REL of this process's
+# forward of the same ids (the same bf16 weights and kernels at batch 1).
+# 26d runs K1 once at this shape in the pip env's task.
+SURFACE_REQUESTS = 16
+SURFACE_TIMEOUT_S = 300
+SURFACE_EVENT_KEY = "chip-smoke/surface"
+CLIENT_ACTOR = "chip-smoke-client-llama"
+CLIENT_RESULT_TAG = "CLIENT_RESULT "
+PIP_ATTN = dict(bh=32, t=2048, d=128)
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -3011,9 +3055,613 @@ def phase_job(card, in_process):
     return {name: r["launches"][name] for name in per_step}
 
 
+# ----------------------------------------------------------------- phase 26
+
+
+def surface_spec(**over):
+    """What phase 26 runs: SERVE_MODEL on the card, phase 23's draw of
+    SURFACE_REQUESTS requests, phase 5's batch for the workflow's steps.
+    The CPU rehearsal (tests/test_torch_surface_phase.py) overrides the
+    model, the device and the sizes."""
+    spec = {"model": SERVE_MODEL, "device": "cuda", "requests": SURFACE_REQUESTS,
+            "min_len": SERVE_MIN_LEN, "max_len": SERVE_MAX_LEN, "batch": BATCH, "seq": SEQ,
+            "steps": TIMED_STEPS + 1, "num_cpus": None}
+    spec.update(over)
+    return spec
+
+
+def surface_model(spec):
+    """spec's Llama on spec's device, seed 0, bf16 parameters, as phase 23
+    builds SERVE_MODEL. A worker asked for the card that sees none raises:
+    nothing falls back to the CPU."""
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+
+    if spec["device"] == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("phase 26: a worker asked for the card sees no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(CONFIGS[spec["model"]], param_dtype=torch.bfloat16)
+    return LlamaForCausalLM(cfg, device=spec["device"])
+
+
+def surface_logits(model, ids, device):
+    """The last position's logits of one request, float32 on `device`."""
+    import torch
+
+    with torch.inference_mode():
+        hidden = model(torch.as_tensor([ids], device=device), return_hidden=True)
+        return model.lm_head(hidden[:, -1]).float()[0]
+
+
+def surface_worker_stats():
+    """This worker's card, visible devices and K1-K3 launches."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.ops import attention as A
+
+    return {"card": torch.cuda.get_device_name() if torch.cuda.is_available() else None,
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "launches": dict(A.LAUNCHES)}
+
+
+class SurfaceLlamaStage:
+    """26a's stage 1: the model on the card; `forward` returns a request's
+    last-position logits as the card's tensor, as a user would write it."""
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.model = surface_model(spec)
+
+    def forward(self, ids):
+        return surface_logits(self.model, ids, self.spec["device"])
+
+    def reset(self):
+        from ray_tpu_torch.ops import attention as A
+
+        A.reset_launch_counts()
+
+    def stats(self):
+        return surface_worker_stats()
+
+
+class SurfaceArgmax:
+    """26a's stage 2, on the CPU: the next token, and what reached it."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def apply(self, logits):
+        self.seen.add((type(logits).__name__, logits.device.type, str(logits.dtype),
+                       tuple(logits.shape)))
+        return logits, int(logits.argmax())
+
+    def reset(self):
+        self.seen = set()
+
+    def stats(self):
+        return sorted(self.seen)
+
+
+def surface_count(counter_dir, name):
+    """One line in `counter_dir/name` per run of a workflow step."""
+    import os
+
+    with open(os.path.join(counter_dir, name), "a") as f:
+        f.write("1\n")
+
+
+def surface_make_batches(spec, counter_dir):
+    """26b's first step: phase 5's ids, from RandomState(0)."""
+    import numpy as np
+
+    from ray_tpu_torch.models.llama import CONFIGS
+
+    surface_count(counter_dir, "make_batches")
+    vocab = CONFIGS[spec["model"]].vocab_size
+    return np.random.RandomState(0).randint(0, vocab, (spec["batch"], spec["seq"]))
+
+
+def surface_train(ids, spec, counter_dir):
+    """26b's second step, on the card: phase 5's llama-1b steps (a warm-up
+    and TIMED_STEPS more on the one batch), K1-K3 counted here."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import attention as A
+
+    surface_count(counter_dir, "train")
+    model = surface_model(spec)
+    optimizer = train.make_optimizer(model)
+    ids = torch.tensor(ids, dtype=torch.long, device=spec["device"])  # a copy: ids is read-only
+    targets = torch.roll(ids, -1, dims=1)
+    A.reset_launch_counts()
+    losses = [float(train.train_step(model, optimizer, ids, targets))
+              for _ in range(spec["steps"])]
+    return {"losses": losses, **surface_worker_stats()}
+
+
+def surface_summarize(result, flag, counter_dir):
+    """26b's last step. Its first attempt fails, as a transient fault
+    would: `resume` must then run it alone."""
+    import os
+
+    surface_count(counter_dir, "summarize")
+    if not os.path.exists(flag):
+        open(flag, "w").close()
+        raise RuntimeError("summarize: a transient fault on the first attempt")
+    return {"final_loss": result["losses"][-1], **result}
+
+
+def surface_event_payload(event):
+    return event["source"]
+
+
+def client_forward_task(ids, spec):
+    """26c's task, submitted by the thin client: the model's forward of
+    one request on the card, K1 counted here."""
+    from ray_tpu_torch.ops import attention as A
+
+    model = surface_model(spec)
+    A.reset_launch_counts()
+    return surface_logits(model, ids, spec["device"]), surface_worker_stats()
+
+
+class ClientLlama:
+    """26c's actor, created by the thin client: the model on the card."""
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.model = surface_model(spec)
+
+    def forward(self, ids):
+        from ray_tpu_torch.ops import attention as A
+
+        A.reset_launch_counts()
+        return surface_logits(self.model, ids, self.spec["device"]), surface_worker_stats()
+
+
+def client_driver(address, spec_json, out_path) -> int:
+    """`chip_smoke.py --client-driver ADDRESS SPEC OUT`, 26c's client: a
+    driver whose only route to the cluster is the `ray_tpu_torch://`
+    address, started with CUDA_VISIBLE_DEVICES empty. It runs the task
+    and the actor, saves what it got to OUT, prints its timings and exits
+    hard, so the session alone must clean up."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    spec = json.loads(spec_json)
+    gpus = 1 if spec["device"] == "cuda" else 0
+    t0 = time.perf_counter()
+    rt.init(address=address)
+    connect_s = time.perf_counter() - t0
+    ids = spec["request"]
+    task = rt.remote(num_gpus=gpus)(client_forward_task)
+    times = {}
+    t0 = time.perf_counter()
+    task_logits, task_stats = rt.get(task.remote(ids, spec), timeout=SURFACE_TIMEOUT_S)
+    times["task_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.get(task.remote(ids, spec), timeout=SURFACE_TIMEOUT_S)
+    times["task_s"] = time.perf_counter() - t0
+    actor = rt.remote(num_gpus=gpus)(ClientLlama).options(name=CLIENT_ACTOR).remote(spec)
+    t0 = time.perf_counter()
+    actor_logits, actor_stats = rt.get(actor.forward.remote(ids), timeout=SURFACE_TIMEOUT_S)
+    times["actor_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.get(actor.forward.remote(ids), timeout=SURFACE_TIMEOUT_S)
+    times["actor_s"] = time.perf_counter() - t0
+    held = rt.put(torch.arange(1 << 16))
+    torch.save({"task": task_logits, "actor": actor_logits}, out_path)
+    print(CLIENT_RESULT_TAG + json.dumps({
+        "connect_s": connect_s, **times, "task": task_stats, "actor": actor_stats,
+        "held": held.hex(), "client_sees_cuda": torch.cuda.is_available()}), flush=True)
+    os._exit(0)  # no shutdown: the head's session must clean up alone
+
+
+def make_wheel(directory, name, version="1.0", body="VALUE = 42\n"):
+    """A hand-rolled wheel (a zip with its dist-info) that pip installs
+    offline, as tests/test_runtime_env.py builds one."""
+    import base64
+    import hashlib
+    import zipfile
+
+    whl = os.path.join(directory, f"{name}-{version}-py3-none-any.whl")
+    dist = f"{name}-{version}.dist-info"
+    files = {
+        f"{name}/__init__.py": body,
+        f"{dist}/METADATA": f"Metadata-Version: 2.1\nName: {name}\nVersion: {version}\n",
+        f"{dist}/WHEEL": ("Wheel-Version: 1.0\nGenerator: chip_smoke\nRoot-Is-Purelib: true\n"
+                          "Tag: py3-none-any\n"),
+    }
+    records = []
+    with zipfile.ZipFile(whl, "w") as zf:
+        for path, content in files.items():
+            data = content.encode()
+            zf.writestr(path, data)
+            digest = base64.urlsafe_b64encode(hashlib.sha256(data).digest()).rstrip(b"=").decode()
+            records.append(f"{path},sha256={digest},{len(data)}")
+        records.append(f"{dist}/RECORD,,")
+        zf.writestr(f"{dist}/RECORD", "\n".join(records) + "\n")
+    return whl
+
+
+def pip_env_task(spec):
+    """26d's task, in the pip env: imports the wheel and the system's
+    torch, sees the card and runs K1 once against its plain version."""
+    import math
+
+    import torch
+
+    import rtpt_smoke_pkg
+    from ray_tpu_torch.ops import attention as A
+
+    if spec["device"] == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("phase 26d: the pip env's task sees no CUDA card")
+    gen = torch.Generator(device=spec["device"]).manual_seed(0)
+    q, k, v = (torch.randn(PIP_ATTN["bh"], PIP_ATTN["t"], PIP_ATTN["d"], generator=gen,
+                           device=spec["device"]).to(torch.bfloat16) for _ in range(3))
+    kw = dict(causal=True, sm_scale=1.0 / math.sqrt(PIP_ATTN["d"]))
+    A.reset_launch_counts()
+    o, _ = A.flash_fwd(q, k, v, **kw)
+    launches = dict(A.LAUNCHES)
+    o_plain, _ = A._flash_fwd_plain(q.float(), k.float(), v.float(), **kw)
+    return {"value": rtpt_smoke_pkg.VALUE, "pkg_file": rtpt_smoke_pkg.__file__,
+            "torch_file": torch.__file__, "max_abs_err": float((o.float() - o_plain).abs().max()),
+            **surface_worker_stats(), "launches": launches}
+
+
+def pip_absent_task():
+    try:
+        import rtpt_smoke_pkg  # noqa: F401
+    except ImportError:
+        return "isolated"
+    return "leaked"
+
+
+def _channel_entries(compiled):
+    """A compiled DAG's shared-memory segments and semaphores, as entries
+    of /dev/shm."""
+    out = []
+    for ch in compiled._all_channels:
+        base = ch.name.strip("/")
+        out += [f"/dev/shm/{base}", f"/dev/shm/sem.{base}.i", f"/dev/shm/sem.{base}.s"]
+    return out
+
+
+def phase_surface(card, in_process, spec=None, parts="abcd"):
+    """Phase 26: a compiled DAG serving the model (a), a workflow that
+    trains on the card and resumes (b), a thin client driving the card
+    (c) and a pip runtime_env on the card (d), all on a runtime of the
+    phase's own under a temp root of its own, each held against this
+    process's model or phase 5's losses (`in_process`). With a spec whose
+    device is the CPU (the rehearsal), the checks that need the card are
+    listed, not made. Returns each part's K1-K3 launches and the list of
+    skipped checks."""
+    import shutil
+    import socket
+    import subprocess
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.util.state import list_actors, list_objects
+
+    spec = spec or surface_spec()
+    device = spec["device"]
+    on_card = device == "cuda"
+    card_name = torch.cuda.get_device_name(0) if on_card else None
+    gpus = 1 if on_card else 0
+    layers = CONFIGS[spec["model"]].num_layers
+    vocab = CONFIGS[spec["model"]].vocab_size
+    skipped = []
+
+    def card_check(ok, what):
+        if on_card:
+            check(ok, what)
+        else:
+            skipped.append(what.split(":")[0])
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    lengths = np.random.RandomState(0).randint(spec["min_len"], spec["max_len"] + 1,
+                                               spec["requests"])
+    ids_rng = np.random.RandomState(1)
+    requests = [ids_rng.randint(0, vocab, n).tolist() for n in lengths]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="rtpt")
+    saved_root = os.environ.get("RAY_TPU_TORCH_TEMP_DIR")
+    os.environ["RAY_TPU_TORCH_TEMP_DIR"] = root
+    # The oracle: the model in this process, built as every worker builds it.
+    model = surface_model(spec)
+    want = [surface_logits(model, r, device).cpu() for r in requests]
+
+    def hold(name, got, r, want_row, token=None):
+        """A row of logits (and its next token) against the oracle's."""
+        got = torch.as_tensor(got)
+        check(got.device.type == "cpu" and got.dtype == torch.float32,
+              f"{name}: logits arrived as {got.device} {got.dtype}, not a host float32 tensor")
+        rel = float((got - want_row).norm() / want_row.norm())
+        check(bool(torch.isfinite(got).all()) and got.shape == want_row.shape
+              and rel <= SERVE_LOGITS_REL,
+              f"{name}: a request of {len(r)} tokens: logits relative error {rel:.3e}")
+        if token is not None:
+            top2 = want_row.topk(2).values
+            diff = float((got - want_row).abs().max())
+            check(token == int(want_row.argmax()) or float(top2[0] - top2[1]) <= diff,
+                  f"{name}: a request of {len(r)} tokens: next token {token}, alone "
+                  f"{int(want_row.argmax())} (top-2 gap {float(top2[0] - top2[1]):.3e}, "
+                  f"largest difference {diff:.3e})")
+        return rel
+
+    launches, worst = {}, {}
+    init_kw = {} if spec["num_cpus"] is None else {"num_cpus": spec["num_cpus"]}
+    rt.init(client_server_port=0, **init_kw)
+    try:
+        if "a" in parts:
+            # 26a. a compiled DAG serving the model, three ways
+            stage = rt.remote(num_gpus=gpus)(SurfaceLlamaStage).remote(spec)
+            argmax = rt.remote(num_gpus=0)(SurfaceArgmax).remote()
+            rt.get(argmax.apply.remote(stage.forward.remote(requests[0])),
+                   timeout=SURFACE_TIMEOUT_S)  # both workers up, the model built and warm
+            rt.get([stage.reset.remote(), argmax.reset.remote()], timeout=SURFACE_TIMEOUT_S)
+            with InputNode() as inp:
+                dag = argmax.apply.bind(stage.forward.bind(inp))
+            compiled = dag.experimental_compile(submit_timeout=SURFACE_TIMEOUT_S)
+            entries = _channel_entries(compiled)
+            check(entries and all(os.path.exists(e) for e in entries),
+                  f"26a: the DAG's channels are not all in /dev/shm: {entries}")
+            out, ms = {}, {}
+            t0 = time.perf_counter()
+            out["execute"] = [compiled.execute(r) for r in requests]
+            ms["execute"] = (time.perf_counter() - t0) * 1e3 / len(requests)
+            t0 = time.perf_counter()
+            feeder = threading.Thread(target=lambda: [compiled.submit(r) for r in requests])
+            feeder.start()
+            out["submit/collect"] = [compiled.collect() for _ in requests]
+            feeder.join()
+            ms["submit/collect"] = (time.perf_counter() - t0) * 1e3 / len(requests)
+            compiled.teardown()
+            left = [e for e in entries if os.path.exists(e)]
+            check(not left, f"26a: left after teardown(): {left}")
+            dag_stats = rt.get(stage.stats.remote(), timeout=SURFACE_TIMEOUT_S)
+            dag_seen = rt.get(argmax.stats.remote(), timeout=SURFACE_TIMEOUT_S)
+            rt.get([stage.reset.remote(), argmax.reset.remote()], timeout=SURFACE_TIMEOUT_S)
+            t0 = time.perf_counter()
+            out[".remote()"] = [rt.get(argmax.apply.remote(stage.forward.remote(r)),
+                                       timeout=SURFACE_TIMEOUT_S) for r in requests]
+            ms[".remote()"] = (time.perf_counter() - t0) * 1e3 / len(requests)
+            rpc_stats = rt.get(stage.stats.remote(), timeout=SURFACE_TIMEOUT_S)
+            rt.kill(stage)  # the card is the next part's
+            check(dag_seen == [("Tensor", "cpu", "torch.float32", (vocab,))],
+                  f"26a: stage 2 got {dag_seen} through the channel, not host float32 tensors")
+            for way, rows in out.items():
+                worst[way] = max(hold(f"26a {way}", got, r, w, token)
+                                 for (got, token), r, w in zip(rows, requests, want))
+            n = len(requests)
+            card_check(dag_stats["card"] == card_name,
+                       f"26a card: stage 1 ran on {dag_stats['card']!r}")
+            card_check(dag_stats["launches"] == {"flash_fwd": 2 * n * layers, "flash_bwd_dkv": 0,
+                                                 "flash_bwd_dq": 0},
+                       f"26a launches: stage 1 launched {dag_stats['launches']} for {2 * n} "
+                       f"requests through the DAG, expected {layers} flash_fwd each")
+            card_check(rpc_stats["launches"]["flash_fwd"] == n * layers,
+                       f"26a launches .remote(): stage 1 launched {rpc_stats['launches']} for {n} "
+                       f"requests")
+            launches["dag"] = dag_stats["launches"]["flash_fwd"]
+            here = []
+            with torch.inference_mode():
+                for r in requests:
+                    sync()
+                    t0 = time.perf_counter()
+                    surface_logits(model, r, device)
+                    sync()
+                    here.append((time.perf_counter() - t0) * 1e3)
+            print(f"compiled DAG {spec['model']} on {card}: {n} requests of T "
+                  f"{spec['min_len']}-{spec['max_len']} ({int(lengths.sum())} tokens), stage 1 "
+                  f"num_gpus={gpus} on {dag_stats['card']} (CUDA_VISIBLE_DEVICES="
+                  f"{dag_stats['visible']}), stage 2 num_gpus=0 received {dag_seen}; ms per "
+                  f"request: execute {ms['execute']:.2f}, submit/collect with the pipe full "
+                  f"{ms['submit/collect']:.2f}, the same actors through .remote() "
+                  f"{ms['.remote()']:.2f}, this process's forward {float(np.mean(here)):.2f}; "
+                  f"worst relative error {worst}; launches through the DAG "
+                  f"{dag_stats['launches']}, through .remote() {rpc_stats['launches']}; "
+                  f"after teardown() none of its {len(entries)} rtpt_ segments and semaphores "
+                  f"left: ok", flush=True)
+
+        if "b" in parts:
+            # 26b. a workflow that trains on the card and resumes
+            wf_dir, counters = os.path.join(root, "workflows"), os.path.join(root, "counters")
+            os.makedirs(counters)
+            workflow.init(wf_dir)
+            flag = os.path.join(root, "summarize-failed-once")
+            make_batches = rt.remote(num_gpus=0)(surface_make_batches)
+            train_task = rt.remote(num_gpus=gpus)(surface_train)
+            summarize = rt.remote(num_gpus=0)(surface_summarize)
+            dag = summarize.bind(train_task.bind(make_batches.bind(spec, counters), spec, counters),
+                                 flag, counters)
+            t0 = time.perf_counter()
+            try:
+                workflow.run(dag, workflow_id="chip-smoke-train")
+            except Exception as e:  # noqa: BLE001 - the planned first failure, checked next
+                first_error = repr(e)
+            else:
+                check(False, "26b: the workflow's first run did not fail")
+            first_s = time.perf_counter() - t0
+            check("transient fault" in first_error, f"26b: the first run failed with {first_error}")
+            check(workflow.get_status("chip-smoke-train") == "FAILED",
+                  f"26b: status {workflow.get_status('chip-smoke-train')} after the failure")
+            t0 = time.perf_counter()
+            result = workflow.resume("chip-smoke-train")
+            resume_s = time.perf_counter() - t0
+            runs = {name: len(open(os.path.join(counters, name)).readlines())
+                    for name in sorted(os.listdir(counters))}
+            check(runs == {"make_batches": 1, "summarize": 2, "train": 1},
+                  f"26b: steps ran {runs} times across the resume, not make_batches and train "
+                  f"once, summarize twice")
+            check(workflow.get_status("chip-smoke-train") == "SUCCESSFUL",
+                  f"26b: status {workflow.get_status('chip-smoke-train')} after the resume")
+            rel = [abs(a - b) / abs(b) for a, b in zip(result["losses"], in_process["losses"])]
+            check(len(rel) == spec["steps"] and max(rel) <= TRAINER_LOSS_RTOL,
+                  f"26b: losses {result['losses']} vs phase 5's {in_process['losses']}: "
+                  f"relative {rel}")
+            per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+            card_check(result["card"] == card_name,
+                       f"26b card: the training step ran on {result['card']!r}")
+            card_check(result["launches"] == {k: v * spec["steps"] for k, v in per_step.items()},
+                       f"26b launches: the training step launched {result['launches']} in "
+                       f"{spec['steps']} steps, expected {per_step} per step")
+            launches["workflow"] = result["launches"]
+            event = "not run (no aiohttp)"
+            try:
+                import aiohttp  # noqa: F401
+            except ImportError:
+                pass
+            else:
+                from ray_tpu_torch.dashboard import start_dashboard
+
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", 0))
+                    dash_port = s.getsockname()[1]
+                url = start_dashboard(port=dash_port)
+                echo = rt.remote(num_gpus=0)(surface_event_payload)
+                fut = workflow.run_async(echo.bind(workflow.wait_for_event(
+                    SURFACE_EVENT_KEY, timeout_s=SURFACE_TIMEOUT_S)), workflow_id="chip-smoke-event")
+                time.sleep(0.5)
+                check(not fut.done(), "26b: the event's workflow ended before the event")
+                t0 = time.perf_counter()
+                req = urllib.request.Request(
+                    f"{url}/api/workflow/events/{SURFACE_EVENT_KEY}", method="POST",
+                    data=json.dumps({"source": "chip_smoke"}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    check(json.loads(r.read())["ok"], "26b: the dashboard refused the event")
+                got = fut.result(timeout=SURFACE_TIMEOUT_S)
+                check(got == "chip_smoke", f"26b: the event's workflow returned {got!r}")
+                event = (f"released by a POST to /api/workflow/events/{SURFACE_EVENT_KEY} in "
+                         f"{time.perf_counter() - t0:.2f} s")
+            print(f"workflow on {card}: make_batches -> train ({spec['model']} b{spec['batch']} "
+                  f"s{spec['seq']}, {spec['steps']} steps, num_gpus={gpus}, on "
+                  f"{result['card']}) -> summarize; the first run failed in summarize after "
+                  f"{first_s:.1f} s, resume {resume_s:.2f} s ran summarize alone (runs {runs}); "
+                  f"losses {[round(x, 4) for x in result['losses']]} against phase 5's "
+                  f"{[round(x, 4) for x in in_process['losses']]} (largest relative "
+                  f"{max(rel):.2e}, rtol {TRAINER_LOSS_RTOL}); launches {result['launches']}; "
+                  f"event step {event}: ok", flush=True)
+
+        if "c" in parts:
+            # 26c. a thin client with no card driving the card
+            address = rt.client_server_address()
+            out_path = os.path.join(root, "client.pt")
+            cspec = dict(spec, request=requests[0])
+            env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                   "PYTHONPATH": os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
+                                                 if p)}
+            t0 = time.perf_counter()
+            client = subprocess.run(
+                [sys.executable, os.path.join(repo, "chip_smoke.py"), "--client-driver", address,
+                 json.dumps(cspec), out_path], env=env, cwd=repo, capture_output=True, text=True,
+                timeout=SURFACE_TIMEOUT_S)
+            client_s = time.perf_counter() - t0
+            lines = [line for line in client.stdout.splitlines()
+                     if line.startswith(CLIENT_RESULT_TAG)]
+            check(client.returncode == 0 and len(lines) == 1,
+                  f"26c: the client exited {client.returncode}: {client.stdout[-3000:]}"
+                  f"{client.stderr[-3000:]}")
+            c = json.loads(lines[0][len(CLIENT_RESULT_TAG):])
+            check(not c["client_sees_cuda"], "26c: the client process saw a CUDA card")
+            got = torch.load(out_path)
+            for name in ("task", "actor"):
+                worst[f"client {name}"] = hold(f"26c {name}", got[name], requests[0], want[0])
+                card_check(c[name]["card"] == card_name,
+                           f"26c card: the client's {name} ran on {c[name]['card']!r}")
+                card_check(c[name]["launches"] == {"flash_fwd": layers, "flash_bwd_dkv": 0,
+                                                   "flash_bwd_dq": 0},
+                           f"26c launches: the client's {name} launched {c[name]['launches']}")
+            launches["client"] = {name: c[name]["launches"]["flash_fwd"] for name in ("task", "actor")}
+            t0, state = time.perf_counter(), None
+            while time.perf_counter() - t0 < 60:
+                actor_states = [a["state"] for a in list_actors() if a.get("name") == CLIENT_ACTOR]
+                held = [o for o in list_objects() if o.get("object_id") == c["held"]]
+                state = (actor_states, len(held))
+                if actor_states and all(s == "DEAD" for s in actor_states) and not held:
+                    break
+                time.sleep(0.5)
+            else:
+                check(False, f"26c: 60 s after the client left, its actor reads {state[0]} and "
+                             f"{state[1]} of its objects remain")
+            cleanup_s = time.perf_counter() - t0
+            print(f"thin client on {card}: a process with CUDA_VISIBLE_DEVICES='' connected to "
+                  f"{address.split('?')[0]} in {c['connect_s']:.2f} s; num_gpus={gpus} task: "
+                  f"first call {c['task_first_s']:.2f} s (worker, model), next "
+                  f"{c['task_s']:.2f} s; actor: first call {c['actor_first_s']:.2f} s, next "
+                  f"{c['actor_s']:.3f} s; its host tensors within {SERVE_LOGITS_REL} of this "
+                  f"process's forward (task {worst['client task']:.3e}, actor "
+                  f"{worst['client actor']:.3e}); launches task {c['task']['launches']}, actor "
+                  f"{c['actor']['launches']} on {c['task']['card']}; after it left, its actor "
+                  f"dead and its object freed within {cleanup_s:.1f} s; client process "
+                  f"{client_s:.1f} s: ok", flush=True)
+
+        if "d" in parts:
+            # 26d. a pip runtime_env on the card
+            wheel = make_wheel(root, "rtpt_smoke_pkg", body="VALUE = 26\n")
+            task = rt.remote(num_gpus=gpus)(pip_env_task)
+            t0 = time.perf_counter()
+            r = rt.get(task.options(runtime_env={"pip": [wheel]}).remote(spec),
+                       timeout=SURFACE_TIMEOUT_S)
+            pip_s = time.perf_counter() - t0
+            cache = os.path.join(root, "runtime_env", "pip")
+            check(r["value"] == 26 and r["pkg_file"].startswith(cache + os.sep),
+                  f"26d: the wheel imported from {r['pkg_file']}, not the env under {cache}")
+            check(not r["torch_file"].startswith(cache), f"26d: torch came from {r['torch_file']}")
+            card_check(r["card"] == card_name,
+                       f"26d card: the pip env's task ran on {r['card']!r}")
+            card_check(r["launches"]["flash_fwd"] == 1,
+                       f"26d launches: the pip env's task launched {r['launches']}")
+            check(r["max_abs_err"] <= O_TOL, f"26d: K1 against its plain version {r['max_abs_err']:.3e}")
+            absent = rt.get(rt.remote(num_gpus=0)(pip_absent_task).remote(), timeout=SURFACE_TIMEOUT_S)
+            check(absent == "isolated", f"26d: a task without the env imported the wheel ({absent})")
+            launches["pip"] = r["launches"]["flash_fwd"]
+            print(f"pip runtime_env on {card}: a num_gpus={gpus} task in a venv built from a "
+                  f"local wheel in {pip_s:.1f} s imports it ({r['pkg_file']}) and the system's "
+                  f"torch, sees {r['card']} (CUDA_VISIBLE_DEVICES={r['visible']}), K1 at bh "
+                  f"{PIP_ATTN['bh']} t {PIP_ATTN['t']} d {PIP_ATTN['d']} within "
+                  f"{r['max_abs_err']:.3e} of its plain version, launches {r['launches']}; a "
+                  f"task without the env cannot import it: ok", flush=True)
+    finally:
+        rt.shutdown()
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        if saved_root is None:
+            os.environ.pop("RAY_TPU_TORCH_TEMP_DIR", None)
+        else:
+            os.environ["RAY_TPU_TORCH_TEMP_DIR"] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+    if skipped:
+        print(f"phase 26 off the card: {len(skipped)} checks that need it skipped: {skipped}",
+              flush=True)
+    return {"launches": launches, "skipped": skipped}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--job-driver"]:
         return job_driver()
+    if sys.argv[1:2] == ["--client-driver"]:
+        return client_driver(*sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -3156,6 +3804,9 @@ def main() -> int:
         rt.shutdown()
     # 25. a job on an autoscaled GPU node, K1-K3 counted in its task
     job_launches = phase_job(card, llama_in_process)
+    # 26. the rest of the surface: a compiled DAG, a workflow, a thin
+    # client and a pip env, each counted in its worker
+    surface = phase_surface(card, llama_in_process)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.
@@ -3173,6 +3824,14 @@ def main() -> int:
             kernels[-1]["serve_launches"] = serve_launches
         if name in job_launches:
             kernels[-1]["job_launches"] = job_launches[name]
+        # Phase 26's paths: 26a's compiled DAG, 26c's thin client and 26d's
+        # pip env launch K1; 26b's workflow K1-K3.
+        if name in surface["launches"]["workflow"]:
+            kernels[-1]["workflow_launches"] = surface["launches"]["workflow"][name]
+        if name == "flash_fwd":
+            kernels[-1].update(dag_launches=surface["launches"]["dag"],
+                               client_launches=surface["launches"]["client"],
+                               pip_launches=surface["launches"]["pip"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,13 @@ card through `iter_torch_batches`) and the out-of-graph collectives on
 torch tensors (`util.collective`). Slice 11 adds Tune (`tune`, whose
 `Tuner` wraps a `TorchTrainer`) and RLlib as far as PPO (`rllib`, its
 learner on the card unless `num_gpus_per_learner=0` asks for the CPU),
-both imported where used. Its API mirrors the reference's `ray` package:
+both imported where used. Later slices add Serve, the cluster tooling and
+the rest of the surface: DAGs and compiled DAGs (`dag`, `.bind`),
+`workflow`, the thin client (`ray_tpu_torch://`), the pip, conda and
+container runtime_env plugins, `util.pubsub`, the pool adapters
+(`util.multiprocessing`, `util.joblib`), `experimental.tqdm_ray` and the
+microbenchmarks (`python -m ray_tpu_torch._private.ray_perf`). Its API
+mirrors the reference's `ray` package:
 
     import ray_tpu_torch
 
@@ -47,6 +53,7 @@ _lock_witness.maybe_install()
 
 from ._private.worker import (  # noqa: F401,E402
     available_resources,
+    client_server_address,
     cluster_resources,
     drain_node,
     free,

@@ -739,6 +739,9 @@ class CoreClient:
             and spec.placement_group_id is None
             and spec.scheduling_strategy is None
             and not spec.retry_exceptions
+            # The compact frame carries no runtime_env: a task with one
+            # takes the GCS route, whose spec the worker activates.
+            and not spec.runtime_env
             and spec.function_blob is None  # first call registers via GCS
             # Single-card GPU tasks lease from the LOCAL raylet only
             # (its pool assigns each worker a dedicated card); larger

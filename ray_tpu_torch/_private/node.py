@@ -55,7 +55,8 @@ class Node:
     def __init__(self, resources: Dict[str, float], temp_dir: Optional[str] = None,
                  tcp_port: Optional[int] = None,
                  session_dir: Optional[str] = None,
-                 authkey: Optional[bytes] = None):
+                 authkey: Optional[bytes] = None,
+                 client_server_port: Optional[int] = None):
         if session_dir is None:
             base = temp_dir or temp_root()
             os.makedirs(base, exist_ok=True)
@@ -138,8 +139,24 @@ class Node:
             head_transfer_addr=head_transfer_addr,
         )
         self.tcp_address = self.gcs.tcp_address
+        # Ray Client equivalent: remote drivers connect over
+        # ``ray_tpu_torch://host:port?authkey`` (reference: util/client/server).
+        self._client_proxy = None
+        self.client_server_address: Optional[str] = None
+        if client_server_port is not None:
+            from .client_proxy import SCHEME, ClientProxyServer
+
+            self._client_proxy = ClientProxyServer(
+                self.address, self.authkey, port=client_server_port
+            )
+            self.client_server_address = (
+                f"{SCHEME}{self._client_proxy.address}?{self.authkey.hex()}"
+            )
 
     def shutdown(self, cleanup_session: bool = True):
+        if self._client_proxy is not None:
+            self._client_proxy.shutdown()
+            self._client_proxy = None
         self.gcs.shutdown()
         if self._transfer is not None:
             self._transfer.shutdown()

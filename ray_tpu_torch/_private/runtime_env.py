@@ -12,8 +12,8 @@ hermetic-code plugins that make sense on a shared host:
                + sys.path'd during execution
   py_modules:  list of local dirs shipped the same way, sys.path only
 
-The reference's pip, conda and container plugins (and the plugin
-registry they use) are not in the port; those keys are refused.
+Plugins (pip, conda, container in `runtime_env_plugins`, registered on
+import) own further keys through the registry below.
 
 Workers are pooled, so activation is scoped (apply/restore) rather
 than per-process (the reference starts dedicated workers per runtime
@@ -34,6 +34,44 @@ from typing import Any, Dict, Optional
 _NS = "__runtime_env__"
 _VALID_KEYS = {"env_vars", "working_dir", "py_modules"}
 _lock = threading.Lock()
+
+
+class RuntimeEnvPlugin:
+    """Extension point (reference: _private/runtime_env/plugin.py
+    RuntimeEnvPlugin — validate/create/modify_context). A plugin owns
+    one runtime_env key:
+
+      validate(config)            raise on bad config (driver-side)
+      package(config, client)     driver-side transform (e.g. upload)
+      create(config, client)      worker-side materialization, cached
+                                  per config hash; returns a context
+      enter(context)              mutate os.environ / sys.path for the
+                                  task (the activation wrapper restores
+                                  both wholesale afterwards)
+    """
+
+    name: str = ""
+
+    def validate(self, config: Any) -> None:  # pragma: no cover - default
+        pass
+
+    def package(self, config: Any, client) -> Any:
+        return config
+
+    def create(self, config: Any, client) -> Any:
+        return config
+
+    def enter(self, context: Any) -> None:
+        pass
+
+
+_PLUGINS: Dict[str, RuntimeEnvPlugin] = {}
+
+
+def register_plugin(plugin: RuntimeEnvPlugin) -> None:
+    """Register a runtime_env plugin; its name becomes a valid key."""
+    _PLUGINS[plugin.name] = plugin
+    _VALID_KEYS.add(plugin.name)
 
 
 _extracted: Dict[str, str] = {}  # uri -> local dir
@@ -65,6 +103,9 @@ def validate(runtime_env: Dict[str, Any]) -> None:
             f"Unsupported runtime_env keys {sorted(bad)}; "
             f"supported: {sorted(_VALID_KEYS)}"
         )
+    for key, plugin in _PLUGINS.items():
+        if key in runtime_env:
+            plugin.validate(runtime_env[key])
 
 
 def _zip_dir(path: str) -> bytes:
@@ -109,6 +150,9 @@ def package(runtime_env: Dict[str, Any], client) -> Dict[str, Any]:
             m if str(m).startswith("kv://") else upload(m)
             for m in out["py_modules"]
         ]
+    for key, plugin in _PLUGINS.items():
+        if key in out:
+            out[key] = plugin.package(out[key], client)
     return out
 
 
@@ -162,6 +206,19 @@ def activate(runtime_env: Optional[Dict[str, Any]], client):
             entered_roots.append(local)
             sys.path.insert(0, local)
             os.chdir(local)
+        for key, plugin in _PLUGINS.items():
+            if key in runtime_env:
+                try:
+                    ctx = plugin.create(runtime_env[key], client)
+                    if isinstance(ctx, str):
+                        entered_roots.append(ctx)
+                    plugin.enter(ctx)
+                except Exception as e:
+                    from ..exceptions import RuntimeEnvSetupError
+
+                    raise RuntimeEnvSetupError(
+                        f"runtime_env plugin {key!r} failed: {e}"
+                    ) from e
         yield
     finally:
         os.chdir(saved_cwd)
@@ -180,3 +237,9 @@ def activate(runtime_env: Optional[Dict[str, Any]], client):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = old
+
+
+# Built-in plugins register on import (pip/conda/container); placed at
+# module end so their `from .runtime_env import ...` sees a fully
+# initialized module.
+from . import runtime_env_plugins as _builtin_plugins  # noqa: E402,F401

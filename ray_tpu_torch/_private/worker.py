@@ -72,6 +72,7 @@ def init(
     ignore_reinit_error: bool = False,
     _temp_dir: Optional[str] = None,
     tcp_port: Optional[int] = None,
+    client_server_port: Optional[int] = None,
 ):
     """Start a local cluster (head) or connect to an existing one.
 
@@ -83,6 +84,9 @@ def init(
     _private/worker.py:1225 → Node head bring-up). ``tcp_port`` (0 = any
     free port) makes the new head listen on the network so node daemons
     (`python -m ray_tpu_torch._private.raylet --address=...`) can join.
+    ``client_server_port`` (0 = any free port) makes it accept thin
+    remote drivers at ``client_server_address()``; ``address`` of the form
+    ``ray_tpu_torch://host:port?authkey`` connects as one.
     """
     with _global.lock:
         if _global.connected:
@@ -114,16 +118,32 @@ def init(
                     "`python -m ray_tpu_torch start --head`"
                 ) from None
         if address is not None and address.startswith("ray_tpu_torch://"):
-            raise RayTpuError(
-                "ray_tpu_torch:// (the thin remote driver) is not ported yet; "
-                "connect with host:port?authkey"
+            # Thin remote driver (reference: ray://, util/client/worker.py):
+            # one TCP connection to a head-side session process that owns
+            # everything this driver creates and cleans up on disconnect.
+            from .client_proxy import ProxyClient, parse_proxy_address
+
+            hostport, pkey = parse_proxy_address(address)
+            _global.client = ProxyClient(
+                hostport, pkey, push_handler=_driver_push
             )
+            _global.mode = DRIVER_MODE
+            if os.environ.get("RAY_TPU_TORCH_LOG_TO_DRIVER", "1") != "0":
+                try:
+                    _global.client.request(
+                        {"type": "subscribe_logs"}, timeout=5
+                    )
+                except Exception:  # noqa: BLE001
+                    pass
+            atexit.register(_atexit_shutdown)
+            return _global.client
         transfer_addr = None
         if address is None:
             node = Node(
                 default_resources(num_cpus, num_gpus, resources),
                 temp_dir=_temp_dir,
                 tcp_port=tcp_port,
+                client_server_port=client_server_port,
             )
             _global.node = node
             address_, authkey = node.address, node.authkey
@@ -175,7 +195,14 @@ def _driver_push(msg):
     if msg.get("type") == "log_lines":
         import sys as _sys
 
+        from ..experimental import tqdm_ray
+
         for node, worker_tag, line in msg["entries"]:
+            # Progress-bar control lines multiplex onto the driver's
+            # bar renderer instead of echoing (experimental/tqdm_ray).
+            if line.startswith(tqdm_ray.MAGIC):
+                if tqdm_ray.handle_magic_line(line):
+                    continue
             print(
                 f"({node} worker={worker_tag}) {line}",
                 file=_sys.stdout, flush=True,
@@ -202,6 +229,12 @@ def shutdown():
 
         if _global.mode == DRIVER_MODE:
             usage_stats.flush()  # local-only sink (zero egress)
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        from ..util import pubsub as _pubsub
+
+        _pubsub._reset_for_shutdown()
     except Exception:  # noqa: BLE001
         pass
     with _global.lock:
@@ -325,6 +358,14 @@ def drain_node(
         }
     )
     return bool(reply.get("accepted"))
+
+
+def client_server_address() -> Optional[str]:
+    """The ``ray_tpu_torch://`` address remote drivers can connect to,
+    when this head was started with ``client_server_port`` (reference:
+    the ray:// address printed by `ray start --head`)."""
+    node = _global.node
+    return None if node is None else node.client_server_address
 
 
 def head_tcp_address() -> Tuple[str, bytes]:

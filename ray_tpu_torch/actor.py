@@ -59,6 +59,12 @@ class ActorMethod:
             concurrency_group or self._concurrency_group,
         )
 
+    def bind(self, *args, **kwargs):
+        """Lazy actor-method call node for DAGs / compiled graphs."""
+        from .dag import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
+
     def remote(self, *args, **kwargs) -> Union[ObjectRef, List[ObjectRef]]:
         client = global_client()
         args_blob, deps, borrowed = _submit.prepare_args(args, kwargs)

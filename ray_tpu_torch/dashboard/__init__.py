@@ -27,8 +27,7 @@ reference ``dashboard/client/src``, matched in function not pixels):
                             (reference: dashboard/modules/serve/ REST
                             config API)
   /api/workflow/events/{k}  POST fires a workflow event (reference:
-                            workflow/http_event_provider.py); the port
-                            has no workflow yet, so it answers 501
+                            workflow/http_event_provider.py)
   /api/task/{task_id}       one task's state + its timeline events
   /api/actor/{actor_id}     one actor's state + its tasks
   /api/jobs                 submitted jobs (job_submission KV table)
@@ -354,15 +353,23 @@ class DashboardActor:
 
     async def _workflow_event(self, request):
         """HTTP event provider (reference: workflow/
-        http_event_provider.py). The port has no workflow module yet:
-        the route answers 501 until it does."""
+        http_event_provider.py): POST a JSON payload to fire the event
+        any waiting workflow node resolves to."""
+        import asyncio
+
         from aiohttp import web
 
-        return web.json_response(
-            {"error": "workflow is not ported yet",
-             "key": request.match_info["key"]},
-            status=501,
-        )
+        from ..workflow import post_event
+
+        key = request.match_info["key"]
+        try:
+            payload = await request.json() if request.can_read_body else None
+        except Exception as e:  # noqa: BLE001 - malformed body -> 400
+            return web.json_response(
+                {"error": f"{type(e).__name__}: {e}"}, status=400
+            )
+        await asyncio.to_thread(post_event, key, payload)
+        return web.json_response({"ok": True, "key": key})
 
     # --------------------------------------------------------------- jobs
     async def _jobs(self, request):

@@ -85,6 +85,14 @@ class RemoteFunction:
             self._blob = _submit.pickle_by_value(self._fn)
             self._function_id = _submit.function_id_for(self._blob)
 
+    def bind(self, *args, **kwargs):
+        """Build a lazy DAG node instead of executing (reference:
+        ray.dag — dag_node.py); run with ``.execute()`` or hand to
+        ``workflow.run``."""
+        from .dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
+
     def remote(self, *args, **kwargs) -> Union[ObjectRef, List[ObjectRef]]:
         client = global_client()
         self._ensure_pickled()

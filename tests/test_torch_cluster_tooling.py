@@ -427,7 +427,11 @@ def test_address_auto_without_a_head_raises_the_references_error(temp_root, monk
     prefix = "address='auto' but no running head found"
     assert str(port.value).startswith(prefix) and str(ref.value).startswith(prefix)
     assert "python -m ray_tpu_torch start --head" in str(port.value)
-    with pytest.raises(RayTpuError, match="not ported yet"):
+    # The thin client's scheme: an address with no proxy behind it
+    # refuses the connection, and one without a key is malformed.
+    with pytest.raises(ConnectionRefusedError):
+        ray_tpu_torch.init(address="ray_tpu_torch://127.0.0.1:1?00")
+    with pytest.raises(RayTpuError, match="client address must be ray_tpu_torch://"):
         ray_tpu_torch.init(address="ray_tpu_torch://127.0.0.1:1")
     assert not ray_tpu_torch.is_initialized()
 

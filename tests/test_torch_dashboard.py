@@ -1,7 +1,7 @@
 """The port's dashboard: tests/test_dashboard_tracing.py (2) and
 tests/test_serve_rest.py (4), case for case, on the port's runtime and
-its Serve, and the workflow route, which answers 501 until the port has
-a workflow module.
+its Serve, and the workflow route, whose POST releases a waiting
+workflow.
 
 Each dashboard binds a free port picked at the test's start (the
 reference's files bind 18266 and 18280, which a reference test running
@@ -299,21 +299,31 @@ def test_serve_put_malformed_body_is_400(dash):
     assert ei.value.code == 400
 
 
-# --------------------------------------------------- pinned divergences
+# ------------------------------------------------------ workflow events
 
 
-def test_workflow_events_route_answers_501_until_workflow_is_ported(dash):
-    """Pinned divergence: the reference's route fires a workflow event;
-    the port has no workflow module yet, so it answers 501."""
-    req = urllib.request.Request(
-        f"{dash}/api/workflow/events/my-key", method="POST",
-        data=b'{"x": 1}', headers={"Content-Type": "application/json"},
+def test_workflow_event_posted_over_http_releases_a_waiting_workflow(dash, tmp_path):
+    """The reference's route, now on the port's workflow: a POST to
+    /api/workflow/events/{key} fires the event a waiting workflow node
+    resolves to (test_dag_workflow.py::test_workflow_event_over_http)."""
+    from ray_tpu_torch import workflow
+
+    workflow.init(str(tmp_path / "wf_http"))
+
+    @ray_tpu_torch.remote
+    def consume(evt):
+        return evt["source"]
+
+    fut = workflow.run_async(
+        consume.bind(workflow.wait_for_event("dash/deploy/done", timeout_s=60)),
+        workflow_id="dash-http-evt",
     )
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        urllib.request.urlopen(req, timeout=30)
-    assert ei.value.code == 501
-    body = json.loads(ei.value.read())
-    assert body == {"error": "workflow is not ported yet", "key": "my-key"}
+    time.sleep(0.5)
+    assert not fut.done()
+    status, body = _req(f"{dash}/api/workflow/events/dash/deploy/done", "POST",
+                        {"source": "ci-pipeline"})
+    assert status == 200 and body == {"ok": True, "key": "dash/deploy/done"}
+    assert fut.result(timeout=HTTP_TIMEOUT_S) == "ci-pipeline"
 
 
 def test_prometheus_metrics_carry_the_ports_series(dash):

@@ -221,9 +221,17 @@ def test_port_imports_nothing_of_the_reference():
         # (and is checked) on a machine without aiohttp too.
         "ray_tpu_torch.dashboard",
     ]
+    surface = [
+        "ray_tpu_torch.dag", "ray_tpu_torch.dag.compiled_dag", "ray_tpu_torch.workflow",
+        "ray_tpu_torch._private.channel", "ray_tpu_torch._private.posix_sem",
+        "ray_tpu_torch._private.client_proxy", "ray_tpu_torch._private.runtime_env_plugins",
+        "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.multiprocessing",
+        "ray_tpu_torch.util.joblib", "ray_tpu_torch.experimental.tqdm_ray",
+        "ray_tpu_torch._private.ray_perf",
+    ]
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.train, ray_tpu_torch.tune, "
             "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert, "
-            f"{serve}, {', '.join(tooling)}; "
+            f"{serve}, {', '.join(tooling + surface)}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('ray_tpu', 'jax', 'flax', 'optax', 'orbax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
