@@ -258,7 +258,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    A stage, step, task or actor asked for the card that sees none raises.
    Prints ms per request each way beside this process's forward, the
    workflow's first run and resume, and the client's seconds to connect
-   and per call.
+   and per call;
+27. Mixtral's other meshes, a C caller, and the native libraries:
+   (a) mixtral-small at full width and depth (b2 s2048, bf16 parameters,
+   remat "dots", `moe_lm_loss` with AdamW) over 4 ranks sharing the card
+   in one world (`run_mixtral_trains`), on MESH_CASES: data 2 x expert 2
+   with "gmm" (each expert rank's own pairs through K4 and K5), seq 2 x
+   expert 2 with "capacity" (positions over the whole sequence) and data
+   2 x tensor 2 with "capacity" (heads and each expert's F split, every
+   exchange an all-reduce, which gloo carries through host memory; in
+   float32 parameters and compute on the mesh and on one card, where a
+   bf16 router near-tie would decide the comparison); one step and
+   MESH_TIMED_STEPS timed each: every loss within RING_LOSS_RTOL of the
+   same steps on one card with the same dispatch and dtype, finite and
+   falling, the ranks holding the same part of the model equal and the
+   unsplit parameters equal on all four, K1-K5 launched over the ranks as
+   often as the mesh implies (`mesh_launches`); each rank's step and peak
+   memory, host-staged and not a measure of scaling; (b) the port's C
+   client driver (`native_tools`, built here at first use) calls a
+   `num_gpus=1` actor holding SERVE_MODEL (seed 0, bf16) over its
+   worker's direct socket: the prompt's int32 ids as bytes in, the
+   greedy next token and the last row's float32 logits as bytes out,
+   both bitwise this process's forward of the prompt, K1 once per layer
+   per call in the actor; ms per call beside this process's forward;
+   (c) the runtime's native object store and codec built from
+   `ray_tpu_torch/_private/csrc/` and live (a failed build fails the
+   phase; nothing falls back).
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -422,6 +447,23 @@ SURFACE_EVENT_KEY = "chip-smoke/surface"
 CLIENT_ACTOR = "chip-smoke-client-llama"
 CLIENT_RESULT_TAG = "CLIENT_RESULT "
 PIP_ATTN = dict(bh=32, t=2048, d=128)
+# Phase 27a: mixtral-small's other meshes, each (label, axes, dispatch,
+# dtype of parameters and compute, None for the phase's bf16), 4 ranks
+# sharing the card in one world, one step and MESH_TIMED_STEPS timed on
+# each. The tensor axis splits every attention and expert product's
+# reduction: in bf16 its partials round apart from one card's products,
+# and a router near-tie then moves tokens between experts on one side
+# only, which decides a 1e-3 loss comparison either way (this phase's
+# first bf16 runs read 1.35e-3 and 1.15e-3). In float32 on both sides the
+# comparison holds the split itself.
+MESH_CASES = (
+    ("expert gmm", dict(data=2, expert=2), "gmm", None),
+    ("seq x expert capacity", dict(seq=2, expert=2), "capacity", None),
+    ("tensor capacity", dict(data=2, tensor=2), "capacity", "float32"),
+)
+MESH_TIMED_STEPS = 2
+# Phase 27b: the C client's prompt (ids from RandomState(2)) and its calls.
+C_PROMPT_LEN, C_CALLS = 512, 10
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -818,12 +860,17 @@ def phase_gmm(G):
     def rand(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
-    def routed(tokens, experts, skip=(), block_m=128):
+    def routed(tokens, experts, skip=(), block_m=128, keep=None):
         """(dst, tile_group, m) of a top-2 layout of random router logits,
-        with the experts in `skip` never chosen."""
+        with the experts in `skip` never chosen; with `keep` (a range of
+        experts), only the pairs routed there, with local ids, as one
+        expert rank of a mesh lays them out (`MoELayer._gmm`)."""
         logits = torch.randn(tokens, experts, generator=gen, device="cuda")
         logits[:, list(skip)] = -math.inf
         e_flat = logits.topk(MOE_TOPK, dim=-1).indices.reshape(-1)
+        if keep is not None:
+            e_flat = e_flat[(e_flat >= keep.start) & (e_flat < keep.stop)] - keep.start
+            experts = len(keep)
         _, dst, tile_group, m = G.aligned_group_layout(e_flat, experts, block_m)
         return dst, tile_group, m
 
@@ -924,6 +971,16 @@ def phase_gmm(G):
     main = case(f"gate/up m{m} k{MOE_D} n{MOE_F}", dst, tile_group, m, e, MOE_D, MOE_F,
                 timed=True)
     case(f"down m{m} k{MOE_F} n{MOE_D}", dst, tile_group, m, e, MOE_F, MOE_D, timed=True)
+    # One expert rank of phase 27a's data 2 x expert 2 "gmm": its data
+    # rank's b1 s2048 tokens, the pairs routed to experts 0-3 of 8.
+    local = range(e // 2)
+    dst, tile_group, m = routed(MOE_TOKENS // 2, e, keep=local)
+    check(tile_group.numel() * 128 == m and m < 9216 // 2,
+          f"expert rank's layout: m_pad {m} over {tile_group.numel()} tiles")
+    case(f"expert rank 0 of 2, m{m} k{MOE_D} n{MOE_F}", dst, tile_group, m, len(local),
+         MOE_D, MOE_F)
+    case(f"expert rank 0 of 2, down m{m} k{MOE_F} n{MOE_D}", dst, tile_group, m, len(local),
+         MOE_F, MOE_D)
     dst, tile_group, m = routed(MOE_TOKENS, e, skip=(3,))
     case(f"empty expert 3, m{m} k{MOE_D} n{MOE_F}", dst, tile_group, m, e, MOE_D, MOE_F,
          empty=(3,))
@@ -3657,6 +3714,285 @@ def phase_surface(card, in_process, spec=None, parts="abcd"):
     return {"launches": launches, "skipped": skipped}
 
 
+def mesh_launches(axes, num_layers: int, dispatch: str, steps: int):
+    """K1-K5 launches over the ranks of a Mixtral mesh in `steps` train
+    steps under remat "dots": on every rank each layer's attention runs
+    K1 in the forward and again in the recompute and K2 and K3 once per
+    ring block (a seq group of n holds n(n + 1) / 2 blocks, future ones
+    run nothing), and with "gmm" each rank runs K4 six times a layer in
+    the forward and the recompute, three more in the dlhs form, and K5
+    three times, whatever its share of the pairs."""
+    ranks = math.prod(axes.values())
+    seq = axes.get("seq", 1)
+    blocks = ranks // seq * seq * (seq + 1) // 2
+    gmm = dispatch == "gmm"
+    per_step = {"flash_fwd": 2 * num_layers * blocks, "flash_bwd_dkv": num_layers * blocks,
+                "flash_bwd_dq": num_layers * blocks,
+                "gmm": 9 * num_layers * ranks if gmm else 0,
+                "tgmm": 3 * num_layers * ranks if gmm else 0}
+    return {name: n * steps for name, n in per_step.items()}
+
+
+def mesh_spec(**over):
+    """What phase 27a runs: mixtral-small on the card, b2 s2048, bf16
+    parameters and compute. The CPU rehearsal
+    (tests/test_torch_mesh_phase.py) overrides the model, the device, the
+    sizes and the dtypes."""
+    spec = {"model": "mixtral-small", "device": "cuda", "batch": BATCH, "seq": SEQ,
+            "param_dtype": "bfloat16", "dtype": "bfloat16", "steps": MESH_TIMED_STEPS}
+    spec.update(over)
+    return spec
+
+
+def phase_meshes(card, spec=None):
+    """Phase 27a: each of MESH_CASES over 4 ranks in one world, against
+    the same steps on one process with the same dispatch. Returns the
+    launches over the ranks by case label; on the CPU (the rehearsal)
+    the launch checks are left to the caller."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.mixtral import CONFIGS, MixtralForCausalLM, moe_lm_loss
+    from ray_tpu_torch.parallel.launch import run_mixtral_trains, spawn
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import make_optimizer, timed_steps, train_step
+
+    spec = spec or mesh_spec()
+    device, steps = spec["device"], spec["steps"]
+
+    def case_cfg(dispatch, dtype):
+        """The config of a case: the spec's dtypes, or `dtype` for both."""
+        return replace(CONFIGS[spec["model"]], moe_dispatch=dispatch,
+                       param_dtype=getattr(torch, dtype or spec["param_dtype"]),
+                       dtype=getattr(torch, dtype or spec["dtype"]))
+
+    ids = np.random.RandomState(0).randint(0, CONFIGS[spec["model"]].vocab_size,
+                                           (spec["batch"], spec["seq"]))
+    single = {}
+    for key in sorted({(d, dt or "") for _, _, d, dt in MESH_CASES}):
+        model = MixtralForCausalLM(case_cfg(*key), device=device)
+        optimizer = make_optimizer(model)
+        ids_d = torch.as_tensor(ids, dtype=torch.long, device=device)
+        targets = torch.roll(ids_d, -1, 1)
+        single[key] = timed_steps(
+            lambda: train_step(model, optimizer, ids_d, targets, moe_lm_loss), steps)
+        del model, optimizer
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    cases = [(MeshSpec(**axes), case_cfg(d, dt)) for _, axes, d, dt in MESH_CASES]
+    t0 = time.perf_counter()
+    res = spawn(run_mixtral_trains, 4, cases, ids, steps,
+                *(("cpu",) if device == "cpu" else ()), deadline_s=600)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for i, (label, axes, dispatch, dtype) in enumerate(MESH_CASES):
+        rs = [r[i] for r in res]
+        cfg = cases[i][1]
+        want, want_s = single[(dispatch, dtype or "")]
+        losses = rs[0]["losses"]
+        check(all(r["losses"] == losses for r in rs), f"27a {label}: ranks report different losses")
+        check(all(math.isfinite(x) for x in losses), f"27a {label}: loss not finite: {losses}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        check(max(rel) <= RING_LOSS_RTOL,
+              f"27a {label}: losses {losses} vs one process's {want}: relative {rel} "
+              f"(rtol {RING_LOSS_RTOL})")
+        check(losses[-1] < losses[0], f"27a {label}: loss did not fall: {losses}")
+        for r in rs:
+            same = [p["param_digest"] for p in rs if (p["expert_rank"], p["tensor_rank"])
+                    == (r["expert_rank"], r["tensor_rank"])]
+            check(all(d == r["param_digest"] for d in same),
+                  f"27a {label}: ranks holding the same part of the model differ: {same}")
+            check(r["replicated_digest"] == rs[0]["replicated_digest"],
+                  f"27a {label}: the unsplit parameters differ between ranks")
+        launches = {name: sum(r["launches"].get(name, 0) + r["gmm_launches"].get(name, 0)
+                              for r in rs)
+                    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "gmm", "tgmm")}
+        expected = mesh_launches(axes, cfg.num_layers, dispatch, steps + 1)
+        if device == "cuda":
+            check(launches == expected,
+                  f"27a {label}: launches over the ranks {launches}, expected {expected}")
+            if dispatch == "gmm":
+                for r in rs:
+                    check(r["gmm_launches"]["gmm"] > 0 and r["gmm_launches"]["tgmm"] > 0,
+                          f"27a {label}: a rank launched no K4 or K5: {r['gmm_launches']}")
+        out[label] = launches
+        for r in sorted(rs, key=lambda r: (r["data_rank"], r["seq_rank"], r["expert_rank"],
+                                           r["tensor_rank"])):
+            peak = r["peak_memory_gb"]
+            print(f"27a {label}: rank data {r['data_rank']} seq {r['seq_rank']} expert "
+                  f"{r['expert_rank']} tensor {r['tensor_rank']}: backend {r['backend']}, "
+                  f"{r['device']} ({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
+                  f"{'n/a' if peak is None else f'{peak:.2f} GB'} (host-staged)", flush=True)
+        axes_s = " x ".join(f"{a} {n}" for a, n in axes.items())
+        print(f"27a {spec['model']} on {axes_s} ({dispatch}, b{spec['batch']} s{spec['seq']}, "
+              f"{dtype or spec['param_dtype']} parameters, {dtype or spec['dtype']} compute, "
+              f"remat dots) on {card}, 4 ranks sharing the card over gloo through host memory: "
+              f"losses {losses} against one process's in the same dtypes "
+              f"{want} (relative {max(rel):.2e}, rtol {RING_LOSS_RTOL}), equal parts, step "
+              f"{max(r['step_ms'] for r in rs):.1f} ms (slowest rank; one process "
+              f"{want_s / steps * 1e3:.1f} ms), launches over the ranks {launches} (expected "
+              f"{expected}): ok; not a measure of scaling (one card, host-staged exchange)",
+              flush=True)
+    print(f"27a: world of 4 ranks, {len(MESH_CASES)} meshes, in {seconds:.1f} s; the tensor "
+          "axis runs here because its exchange is all-reduces only (the MoE layer's "
+          "copy_to_group / reduce_from_group, the attention's DTensor plan), which gloo "
+          "carries through host memory; it runs in float32 on the mesh and on one card "
+          "because in bf16 a router near-tie, not the split, decides the 1e-3 comparison",
+          flush=True)
+    return out
+
+
+class CClientLlama:
+    """27b's actor: the model on the card, answering a prompt's int32 ids
+    (bytes) with the greedy next token (int32) and the last row's float32
+    logits, as bytes for a C caller."""
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.model = surface_model(spec)
+
+    def next_token(self, ids):
+        import struct
+
+        import numpy as np
+
+        logits = surface_logits(self.model, np.frombuffer(ids, np.int32).tolist(),
+                                self.spec["device"]).cpu()
+        return struct.pack("<i", int(logits.argmax())) + logits.numpy().tobytes()
+
+    def reset(self):
+        from ray_tpu_torch.ops import attention as A
+
+        A.reset_launch_counts()
+
+    def stats(self):
+        return surface_worker_stats()
+
+
+def phase_c_client(card, spec=None):
+    """Phase 27b: the port's C client driver against a one-GPU actor
+    holding the model, held bitwise against this process's forward; then
+    27c, the native store and codec. Returns the actor's K1-K3 launches
+    over the C calls. With a spec whose device is the CPU (the
+    rehearsal), the card's checks are listed, not made; returns them too."""
+    import struct
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import fastpath, native_store, native_tools
+    from ray_tpu_torch._private.worker import global_client
+    from ray_tpu_torch.models.llama import CONFIGS
+
+    spec = spec or surface_spec()
+    device = spec["device"]
+    on_card = device == "cuda"
+    skipped = []
+
+    def card_check(ok, what):
+        if on_card:
+            check(ok, what)
+        else:
+            skipped.append(what.split(":")[0])
+
+    t0 = time.perf_counter()
+    driver = native_tools.build("rtpt_client_test")
+    library = native_tools.build("librtpt_client.so")
+    build_s = time.perf_counter() - t0
+    layers = CONFIGS[spec["model"]].num_layers
+    prompt = np.random.RandomState(2).randint(
+        0, CONFIGS[spec["model"]].vocab_size, C_PROMPT_LEN).astype(np.int32)
+    model = surface_model(spec)
+    want = surface_logits(model, prompt.tolist(), device).cpu()
+    here_ms = []
+    for _ in range(C_CALLS):
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        surface_logits(model, prompt.tolist(), device).cpu()
+        here_ms.append((time.perf_counter() - t1) * 1e3)
+    del model
+    want_bytes = struct.pack("<i", int(want.argmax())) + want.numpy().tobytes()
+    # The reply carries the logits inline: raise the inline limit past
+    # their size for this phase's runtime (its workers inherit it).
+    key = "RAY_TPU_TORCH_max_inline_object_size"
+    saved = os.environ.get(key)
+    os.environ[key] = str(2 * len(want_bytes))
+    work = tempfile.mkdtemp(prefix="rtpt")
+    rt.init(**({} if on_card else {"num_cpus": 2}))
+    try:
+        actor = rt.remote(num_gpus=1 if on_card else 0)(CClientLlama).remote(spec)
+        seen = rt.get(actor.stats.remote(), timeout=SURFACE_TIMEOUT_S)
+        card_check(seen["card"] == torch.cuda.get_device_name(0) if on_card else True,
+                   f"27b: the actor sees {seen['card']}")
+        rt.get(actor.next_token.remote(prompt.tobytes()), timeout=SURFACE_TIMEOUT_S)  # warm
+        rt.get(actor.reset.remote(), timeout=SURFACE_TIMEOUT_S)
+        client = global_client()
+        aid = actor._actor_id.binary()
+        addr = None
+        deadline = time.time() + 60
+        while addr is None and time.time() < deadline:
+            addr = client.request({"type": "get_actor_direct", "actor_id": aid}).get("addr")
+            if addr is None:
+                time.sleep(0.1)
+        check(addr is not None, "27b: the actor's direct socket was not published")
+        arg, out_path = os.path.join(work, "prompt.bin"), os.path.join(work, "reply.bin")
+        with open(arg, "wb") as f:
+            f.write(prompt.tobytes())
+        proc = subprocess.run([driver, addr, client._authkey.hex(), aid.hex(), "call",
+                               "next_token", arg, out_path, str(C_CALLS)],
+                              capture_output=True, text=True, timeout=SURFACE_TIMEOUT_S)
+        check(proc.returncode == 0 and proc.stdout.strip().splitlines()[-1] == "ok",
+              f"27b: the C driver failed ({proc.returncode}): {proc.stdout[-500:]} "
+              f"{proc.stderr[-500:]}")
+        call_ms = [float(line.split()[1]) for line in proc.stdout.splitlines()
+                   if line.startswith("call_ms ")]
+        with open(out_path, "rb") as f:
+            got = f.read()
+        stats = rt.get(actor.stats.remote(), timeout=SURFACE_TIMEOUT_S)
+    finally:
+        rt.shutdown()
+        if saved is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = saved
+    check(len(call_ms) == C_CALLS, f"27b: {len(call_ms)} timed calls, expected {C_CALLS}")
+    token = struct.unpack("<i", got[:4])[0]
+    check(got == want_bytes,
+          f"27b: the C caller's reply ({len(got)} bytes, next token {token}) is not this "
+          f"process's forward bitwise ({len(want_bytes)} bytes, next token "
+          f"{int(want.argmax())}); logits max difference "
+          f"{float((torch.frombuffer(bytearray(got[4:]), dtype=torch.float32) - want).abs().max()) if len(got) == len(want_bytes) else 'n/a'}")
+    launches = stats["launches"]
+    card_check(launches.get("flash_fwd") == layers * C_CALLS
+               and not launches.get("flash_bwd_dkv") and not launches.get("flash_bwd_dq"),
+               f"27b: the actor launched {launches} over {C_CALLS} C calls, expected K1 "
+               f"{layers * C_CALLS} and no K2 or K3")
+    print(f"27b: the C client ({os.path.relpath(driver)}, {os.path.relpath(library)}, built "
+          f"in {build_s:.1f} s) called a num_gpus=1 {spec['model']} actor on {card} over "
+          f"{addr}: a prompt of {C_PROMPT_LEN} int32 ids in, next token {token} and "
+          f"{len(got) - 4} bytes of float32 logits out, bitwise this process's forward; ms "
+          f"per call {float(np.median(call_ms)):.2f} median ({min(call_ms):.2f}-"
+          f"{max(call_ms):.2f}, first {call_ms[0]:.2f}), this process's forward "
+          f"{float(np.median(here_ms)):.2f} median; K1 {launches.get('flash_fwd')} in the "
+          f"actor over {C_CALLS} calls: ok", flush=True)
+    # 27c. the runtime's native store and codec, built from the port's sources
+    csrc = os.path.join(os.path.dirname(os.path.abspath(native_store.__file__)), "csrc")
+    for name, src in (("native_store", native_store._SRC), ("fastpath", fastpath._SRC)):
+        check(os.path.dirname(os.path.abspath(src)) == csrc,
+              f"27c: {name} builds from {src}, not from {csrc}")
+    check(native_store.native_available(),
+          f"27c: the native object store did not build: {native_store.build_error}")
+    check(fastpath.available(), f"27c: the fastpath codec did not build: {fastpath.build_error}")
+    print(f"27c: the native object store ({os.path.relpath(native_store._LIB_PATH)}) and the "
+          f"fastpath codec ({os.path.relpath(fastpath._MOD_PATH)}) built from "
+          f"{os.path.relpath(csrc)} and live: ok", flush=True)
+    return {"launches": launches, "skipped": skipped}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--job-driver"]:
         return job_driver()
@@ -3807,6 +4143,13 @@ def main() -> int:
     # 26. the rest of the surface: a compiled DAG, a workflow, a thin
     # client and a pip env, each counted in its worker
     surface = phase_surface(card, llama_in_process)
+    torch.cuda.empty_cache()
+    # 27. Mixtral's other meshes over 4 processes, counted in each rank; a
+    # C caller of a llama-1b actor, counted in the actor; the native
+    # store and codec
+    mesh_launches_by_case = phase_meshes(card)
+    torch.cuda.empty_cache()
+    c_client = phase_c_client(card)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.
@@ -3831,7 +4174,11 @@ def main() -> int:
         if name == "flash_fwd":
             kernels[-1].update(dag_launches=surface["launches"]["dag"],
                                client_launches=surface["launches"]["client"],
-                               pip_launches=surface["launches"]["pip"])
+                               pip_launches=surface["launches"]["pip"],
+                               c_client_launches=c_client["launches"]["flash_fwd"])
+        # Phase 27a's meshes, summed over their ranks.
+        kernels[-1]["mesh_launches"] = {label: n[name]
+                                        for label, n in mesh_launches_by_case.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

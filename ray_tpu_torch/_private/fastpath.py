@@ -1,10 +1,12 @@
-"""Loader for the native control-plane hot path (native/fastpath.c).
+"""Loader for the native control-plane hot path (the port's own
+`csrc/fastpath.c`, built at first use into `_native/`).
 
 Reference: the compiled Cython submit/receive path (_raylet.pyx:3996)
 and the hand-rolled encodings of the hot RPCs. Builds the CPython
 extension on first import if missing (same pattern as native_store);
 falls back to pure-Python/pickle when no toolchain is available —
-`available()` tells callers which path is live.
+`available()` tells callers which path is live, and `build_error` holds
+the compiler's complaint.
 """
 from __future__ import annotations
 
@@ -15,20 +17,19 @@ import sysconfig
 import threading
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "_native")
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
-    "native",
-    "fastpath.c",
-)
+_SRC = os.path.join(os.path.dirname(__file__), "csrc", "fastpath.c")
 _EXT = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
 _MOD_PATH = os.path.join(_NATIVE_DIR, f"fastpath{_EXT}")
 
 _mod = None
 _tried = False
 _lock = threading.Lock()
+#: Why the last build failed (the compiler's stderr), or None.
+build_error = None
 
 
 def _build() -> bool:
+    global build_error
     os.makedirs(_NATIVE_DIR, exist_ok=True)
     include = sysconfig.get_paths()["include"]
     # Build to a private temp name, then rename: every process in a
@@ -47,8 +48,10 @@ def _build() -> bool:
             timeout=120,
         )
         os.replace(tmp, _MOD_PATH)
+        build_error = None
         return True
-    except Exception:  # noqa: BLE001 - no toolchain → pickle fallback
+    except Exception as e:  # noqa: BLE001 - no toolchain → pickle fallback
+        build_error = (getattr(e, "stderr", None) or b"").decode(errors="replace") or repr(e)
         try:
             os.unlink(tmp)
         except OSError:

@@ -558,6 +558,11 @@ class GcsServer:
         #: still be alive; claimed via hello reconnect, else restarted
         #: (or declared dead) at window close.
         self._recover_actors: Set[bytes] = set()
+        #: Of those, the actors restored A_PENDING: a creation whose
+        #: finish the old head never persisted. The worker that ran it
+        #: may re-claim it; else its creation is queued at window close,
+        #: consuming no restart (it never ran as far as the head knows).
+        self._recover_pending: Set[bytes] = set()
         #: Object ids restored from the snapshot, awaiting an owner
         #: re-claim; unclaimed ones free at window close (no leak).
         self._restored_unclaimed: Set[bytes] = set()
@@ -956,6 +961,7 @@ class GcsServer:
                 drop.append(aid)
                 continue
             self._recover_actors.discard(aid)
+            self._recover_pending.discard(aid)
             actor.state = A_ALIVE
             actor.worker_id = w.worker_id
             if shared:
@@ -3429,7 +3435,13 @@ class GcsServer:
             queued, inflight = pend["queued"], pend["inflight"]
         else:  # legacy list-only snapshot
             queued, inflight = pend, []
+        # Creations of actors recorded PENDING are held for the recovery
+        # window (see the actors loop below), not queued.
+        held = {aid for aid, rec in snap["actors"].items() if rec["state"] == A_PENDING}
         for spec in queued:
+            if spec.actor_creation and spec.actor_id is not None \
+                    and spec.actor_id.binary() in held:
+                continue
             self._pending.append(spec)
         for spec in inflight:
             if spec.actor_creation:
@@ -3491,16 +3503,21 @@ class GcsServer:
                 # worker can claim it, and offering a claim AND keeping
                 # the queued spec would create the actor twice).
             else:
+                # The old head may have dispatched this creation and
+                # seen it finish after its last persist tick: the worker
+                # that hosts the actor then outlives the head and
+                # re-claims it in the recovery window (hello reconnect),
+                # as for a scheduled actor. Queuing the creation now
+                # would make a second instance and the claim would be
+                # refused, dropping the first: the worker keeps
+                # answering that the actor is gone. So the creation waits
+                # for the window; unclaimed, it is queued at its close
+                # (`_finish_recovery`) without consuming a restart.
                 actor.state = A_PENDING
                 for m in rec["pending"]:
                     actor.pending.append(m)
-                if not any(
-                    s.actor_creation
-                    and s.actor_id is not None
-                    and s.actor_id.binary() == aid
-                    for s in self._pending
-                ):
-                    self._pending.append(spec)
+                self._recover_actors.add(aid)
+                self._recover_pending.add(aid)
             self.actors[aid] = actor
         sys.stderr.write(
             f"gcs: restored state — {len(self.actors)} actors, "
@@ -4458,6 +4475,12 @@ class GcsServer:
             # 1. Unclaimed actors: the old worker never came back.
             for aid in list(self._recover_actors):
                 actor = self.actors.get(aid)
+                if actor is not None and actor.state == A_PENDING \
+                        and aid in self._recover_pending:
+                    # Unclaimed held creation: it runs now, for the
+                    # first time as far as any head knows.
+                    self._pending.append(actor.spec)
+                    continue
                 if actor is None or actor.state != A_RESTARTING:
                     continue
                 spec = actor.spec
@@ -4497,6 +4520,7 @@ class GcsServer:
                         self._pending.append(spec)
                     stats["actors_restarted"] += 1
             self._recover_actors.clear()
+            self._recover_pending.clear()
             # 2. Unclaimed in-flight tasks: their workers died with the
             # old head — re-queue (at-least-once, like reconstruction).
             for spec in self._recover_inflight.values():

@@ -1,9 +1,11 @@
 """ctypes bindings + pool-backed store over the C++ core.
 
-The C++ library (native/store.cpp) owns allocation, the object table,
-refcounts, and LRU eviction inside one shm pool; Python reads/writes
-payloads through a zero-copy memoryview of the same mapping. Falls
-back silently (native_available() False) if the library can't build.
+The C++ library (the port's own `csrc/store.cpp`, built at first use
+into `_native/`) owns allocation, the object table, refcounts, and LRU
+eviction inside one shm pool; Python reads/writes payloads through a
+zero-copy memoryview of the same mapping. Falls back to the pure-Python
+store (native_available() False) if the library can't build;
+`build_error` then holds the compiler's complaint.
 """
 from __future__ import annotations
 
@@ -15,17 +17,16 @@ from typing import Optional
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "_native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libray_tpu_store.so")
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
-    "native",
-    "store.cpp",
-)
+_SRC = os.path.join(os.path.dirname(__file__), "csrc", "store.cpp")
 
 _lib = None
 _lib_lock = threading.Lock()
+#: Why the last build failed (the compiler's stderr), or None.
+build_error: Optional[str] = None
 
 
 def _build() -> bool:
+    global build_error
     os.makedirs(_NATIVE_DIR, exist_ok=True)
     # Build to a private name, then atomically publish (same pattern as
     # fastpath._build): a concurrent build in another cluster process
@@ -42,8 +43,10 @@ def _build() -> bool:
             timeout=120,
         )
         os.replace(tmp, _LIB_PATH)
+        build_error = None
         return True
-    except Exception:  # noqa: BLE001 - no toolchain → fallback store
+    except Exception as e:  # noqa: BLE001 - no toolchain → fallback store
+        build_error = (getattr(e, "stderr", None) or b"").decode(errors="replace") or repr(e)
         try:
             os.unlink(tmp)
         except OSError:

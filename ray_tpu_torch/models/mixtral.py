@@ -28,18 +28,35 @@ changes no state.
 With a `mesh` (`parallel.mesh.MeshSpec.build`), rows split over ("data",
 "fsdp") and the sequence over "seq" (the ring, as in Llama); the router's
 batch statistics are summed over those axes, so the load-balancing loss is
-the global batch's, as under the reference's GSPMD. An `expert` axis of
-size ep splits the experts: rank e holds experts [e E/ep, (e+1) E/ep) of
-every layer, drawn with all the others from the same seed, so the weights
-are the single-device model's. The dispatch is then "capacity" (the
-reference forces it there, `resolve_moe_dispatch`); an explicit "gmm" or
-"ragged" raises. The ranks of an expert group see the same rows. Each
-routes all of them, runs the capacity einsums on its own experts and
-combines only their pairs; the partial outputs are summed over the group
-(`parallel.collectives.reduce_from_group`), and the gradients of the
-experts' inputs and gates are summed back (`copy_to_group`), so every
-replicated gradient comes out whole on each rank and the router's loss
-and attention count once.
+the global batch's, as under the reference's GSPMD. Capacity positions run
+over the whole sequence: each seq rank adds the arrivals of the shards
+before it (`capacity_slots`), so a pair drops where it drops on one device.
+
+Two axes split the MoE layer's work, and every split weight is drawn whole
+from the same seed and cut, so the weights are the single-device model's:
+
+- `expert` (size ep): rank e holds experts [e E/ep, (e+1) E/ep) of every
+  layer. "auto" is "capacity" there, as the reference's
+  `resolve_moe_dispatch` returns; an explicit "gmm" or "ragged" runs over
+  the pairs routed to this rank's experts only (for "gmm" a layout of
+  those pairs alone, through K4/K5 on every rank), so it drops nothing;
+- `tensor` (size tp): rank r holds F/tp columns of each expert's gate and
+  up projections and the matching rows of its down projection (the
+  reference's P("expert", "fsdp", "tensor") and P("expert", "tensor",
+  "fsdp")). Attention takes the plan that `parallel.mesh.shard_params`
+  gives a Llama's (`parallel.mesh.layer_plan`: column-parallel q, k and v,
+  row-parallel o, as DTensors over mesh["tensor"]), so it holds H/tp query
+  and Hkv/tp key-value heads.
+
+The ranks of these groups see the same rows. Each routes all of them and
+runs its share; partial outputs are summed over the groups
+(`parallel.collectives.reduce_from_group`) and the gradients of the inputs
+and gates summed back (`copy_to_group`), so every replicated gradient comes
+out whole on each rank and the router's loss counts once. Every exchange
+is an all-reduce, which gloo carries for CUDA tensors. Over "tensor" the
+experts' partial outputs are summed before the combine, the expert
+ranks' combined outputs after it. All products compute in `dtype`, as on
+one device.
 """
 from __future__ import annotations
 
@@ -59,7 +76,12 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..ops.gmm import aligned_group_layout, gmm
-from ..parallel.collectives import copy_to_group, reduce_from_group, sum_over_groups
+from ..parallel.collectives import (
+    all_reduce_sum_,
+    copy_to_group,
+    reduce_from_group,
+    sum_over_groups,
+)
 from .llama import (
     Attention,
     Dense,
@@ -189,28 +211,30 @@ def _probe_seconds(cfg: MixtralConfig, tokens: int, steps: int,
     return {name: statistics.median(r) for name, r in rounds.items()}
 
 
+# An axis that splits work: (its group, this rank's index on it, its size).
+Split = Tuple[object, int, int]
+
+
+def _split(mesh, axis: str) -> Optional[Split]:
+    """The mesh's `axis` as a `Split`, or None without a mesh or when the
+    axis has one rank."""
+    if mesh is None or mesh[axis].size() == 1:
+        return None
+    return mesh.get_group(axis), mesh[axis].get_local_rank(), mesh[axis].size()
+
+
 def _expert_parallel(mesh) -> bool:
-    return mesh is not None and mesh["expert"].size() > 1
-
-
-def _expert_dispatch(cfg: MixtralConfig) -> str:
-    """"capacity", the only dispatch of an expert mesh; raises for an
-    explicit other one (the reference leaves that to GSPMD)."""
-    if cfg.moe_dispatch not in ("auto", "capacity"):
-        raise ValueError(f"an expert-parallel mesh dispatches by capacity; moe_dispatch "
-                         f"{cfg.moe_dispatch!r} is not split over experts")
-    return "capacity"
+    return _split(mesh, "expert") is not None
 
 
 def resolve_moe_dispatch(cfg: MixtralConfig, tokens: int = 4096, steps: int = 10,
                          device: DeviceLike = None, mesh=None) -> str:
     """The MoE dispatch backend for this config on this device.
 
-    On a mesh whose "expert" axis is larger than 1 it is "capacity",
-    cached for the shape without a probe, as the reference forces it; an
-    explicit "gmm" or "ragged" raises there. Otherwise a config's
-    explicit backend wins, then the env override
-    `RAY_TPU_MOE_DISPATCH`. For "auto", a timed probe of "capacity" against
+    A config's explicit backend wins, on any mesh. On a mesh whose
+    "expert" axis is larger than 1, "auto" is "capacity", cached for the
+    shape without a probe, as the reference returns it. Otherwise the env
+    override `RAY_TPU_MOE_DISPATCH` comes next. For "auto", a timed probe of "capacity" against
     "gmm" (forward and backward of one layer at this config's widths over
     `tokens` tokens, the median of PROBE_REPEATS rounds of `steps` steps) takes
     "capacity" only if it is faster by more than `PROBE_MARGIN`, else
@@ -222,11 +246,11 @@ def resolve_moe_dispatch(cfg: MixtralConfig, tokens: int = 4096, steps: int = 10
     kernel.
     """
     skey = _shape_key(cfg)
-    if _expert_parallel(mesh):
-        _RESOLVED[skey] = _expert_dispatch(cfg)
-        return _RESOLVED[skey]
     if cfg.moe_dispatch != "auto":
         return cfg.moe_dispatch
+    if _expert_parallel(mesh):
+        _RESOLVED[skey] = "capacity"
+        return "capacity"
     env = os.environ.get("RAY_TPU_MOE_DISPATCH")
     if env:
         if env not in DISPATCHES:
@@ -271,21 +295,44 @@ def _expert_ffn(x, w_gate, w_up, w_down):
 
 
 def capacity_slots(gate_idx: torch.Tensor, expert_mask: torch.Tensor,
-                   cfg: MixtralConfig) -> Tuple[torch.Tensor, int]:
+                   cfg: MixtralConfig, seq: Optional[Split] = None) -> Tuple[torch.Tensor, int]:
     """Each (token, k) pair's slot in the capacity buffers [B, E * C]: the
     first C = capacity_factor * T * K / E arrivals per expert in each batch
     row (by a cumsum over T) keep expert * C + position, later pairs are
     dropped to dump slots E * C + pair. Returns (slot [B, T * K], C). Rows
-    are routed apart, so splitting the batch moves no drop."""
+    are routed apart, so splitting the batch moves no drop.
+
+    With `seq`, the tokens are this rank's contiguous shard of a sequence
+    split over its group, and T and the positions are the whole
+    sequence's: each expert's arrivals on the shards before this one (an
+    exclusive prefix of every shard's counts, which an all-reduce of a
+    zero-padded [n, B, E] buffer gives each rank) are added to the
+    shard's own. So a pair is dropped exactly where it is on one device."""
     b, t, k = gate_idx.shape
     e = cfg.num_experts
-    c = max(1, int(cfg.capacity_factor * t * k / e))
     # Arrival position of each token within its expert, per batch row.
     position = torch.cumsum(expert_mask, dim=1) - expert_mask  # [B, T, E]
+    t_all = t
+    if seq is not None:
+        group, rank, n = seq
+        with torch.no_grad():
+            counts = expert_mask.new_zeros((n, b, e))
+            counts[rank] = expert_mask.sum(1)
+            all_reduce_sum_(counts, group)
+        position = position + counts[:rank].sum(0)[:, None, :]
+        t_all = t * n
+    c = max(1, int(cfg.capacity_factor * t_all * k / e))
     pos = position.gather(2, gate_idx).reshape(b, t * k).long()
     e_flat = gate_idx.reshape(b, t * k)
     pair = torch.arange(t * k, device=gate_idx.device)
     return torch.where(pos < c, e_flat * c + pos, e * c + pair), c
+
+
+def take_parts(full: torch.Tensor, parts: List[Tuple[int, int, int]]) -> torch.Tensor:
+    """`full` narrowed by each (dim, start, length) of `parts` in turn."""
+    for dim, start, length in parts:
+        full = full.narrow(dim, start, length)
+    return full
 
 
 def is_expert_param(name: str) -> bool:
@@ -298,8 +345,8 @@ class MoELayer(nn.Module):
     output [B, T, D] and the router's load-balancing loss (Switch
     Transformer: E * sum over experts of token fraction * mean gate
     probability). Weights are stored as the reference's: router [E, D],
-    experts w_gate, w_up [E, D, F] and w_down [E, F, D]; on an expert mesh
-    of size ep, this rank's E / ep experts of each."""
+    experts w_gate, w_up [E, D, F] and w_down [E, F, D]; on a mesh, this
+    rank's E / ep experts of each, and of each expert its F / tp part."""
 
     def __init__(self, cfg: MixtralConfig, *, mesh=None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -307,28 +354,37 @@ class MoELayer(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         e, d, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
-        # The groups the router's batch statistics are summed over, and the
-        # expert group with this rank's first expert.
+        # The groups the router's batch statistics are summed over.
         self.batch_groups = [mesh.get_group(a) for a in ("data", "fsdp", "seq")
                              if mesh is not None and mesh[a].size() > 1]
         self.batch_ranks = math.prod(mesh[a].size() for a in ("data", "fsdp", "seq")) \
             if mesh is not None else 1
-        self.expert_group, self.first_expert, local = None, 0, e
-        if _expert_parallel(mesh):
-            _expert_dispatch(cfg)
-            ep = mesh["expert"].size()
+        self.seq = _split(mesh, "seq")
+        # The groups that split the layer's work, this rank's first expert
+        # and its part of F.
+        expert, tensor = _split(mesh, "expert"), _split(mesh, "tensor")
+        self.expert_group = expert[0] if expert is not None else None
+        self.tensor_group = tensor[0] if tensor is not None else None
+        self.first_expert, local = 0, e
+        if expert is not None:
+            _, rank, ep = expert
             if e % ep:
                 raise ValueError(f"{e} experts do not split over an expert axis of {ep}")
             local = e // ep
-            self.expert_group = mesh.get_group("expert")
-            self.first_expert = mesh["expert"].get_local_rank() * local
-        if mesh is not None and mesh["seq"].size() > 1 and self.dispatch() == "capacity":
-            raise ValueError("capacity positions run over the whole sequence; a mesh with "
-                             "seq > 1 takes the gmm or ragged dispatch")
+            self.first_expert = rank * local
+        self.f_part = (0, 1)
+        if tensor is not None:
+            _, rank, tp = tensor
+            if f % tp:
+                raise ValueError(f"intermediate size {f} does not split over a tensor "
+                                 f"axis of {tp}")
+            self.f_part = (rank, tp)
+        fl = f // self.f_part[1]
         self.router = Dense(d, e, torch.float32, cfg.param_dtype, device)
-        self.w_gate = _param((local, d, f), cfg.param_dtype, device)
-        self.w_up = _param((local, d, f), cfg.param_dtype, device)
-        self.w_down = _param((local, f, d), cfg.param_dtype, device)
+        self.w_gate = _param((local, d, fl), cfg.param_dtype, device)
+        self.w_up = _param((local, d, fl), cfg.param_dtype, device)
+        self.w_down = _param((local, fl, d), cfg.param_dtype, device)
+        self.dispatch()
         if generator is not None:
             init_parameters(self, generator)
             self.init_experts(generator)
@@ -340,22 +396,36 @@ class MoELayer(nn.Module):
         """This rank's experts among all E."""
         return slice(self.first_expert, self.first_expert + self.w_gate.shape[0])
 
+    def expert_parts(self, name: str) -> List[Tuple[int, int, int]]:
+        """The narrows (`take_parts`) that cut this rank's part of
+        the expert weight `name` out of the whole [E, ...] one: its experts,
+        then its part of F (dim 2 of w_gate and w_up, dim 1 of w_down)."""
+        experts, (index, parts) = self.local_experts(), self.f_part
+        out = []
+        if experts.stop - experts.start < self.cfg.num_experts:
+            out.append((0, experts.start, experts.stop - experts.start))
+        if parts > 1:
+            fl = self.cfg.intermediate_size // parts
+            out.append((1 if name == "w_down" else 2, index * fl, fl))
+        return out
+
     @torch.no_grad()
     def init_experts(self, generator: torch.Generator) -> None:
-        """All E experts of each weight drawn in turn, this rank's kept."""
-        e = self.cfg.num_experts
-        for w in self.experts():  # [E, fan_in, fan_out]
-            full = torch.empty((e, *w.shape[1:]), dtype=w.dtype, device=w.device)
-            full.normal_(0.0, w.shape[1] ** -0.5, generator=generator)
-            w.copy_(full[self.local_experts()])
+        """All E experts of each weight drawn whole in turn, this rank's
+        part kept."""
+        e, d, f = self.cfg.num_experts, self.cfg.hidden_size, self.cfg.intermediate_size
+        for name, w in zip(EXPERT_PARAMS, self.experts()):  # [E, fan_in, fan_out]
+            shape = (e, f, d) if name == "w_down" else (e, d, f)
+            full = torch.empty(shape, dtype=w.dtype, device=w.device)
+            full.normal_(0.0, shape[1] ** -0.5, generator=generator)
+            w.copy_(take_parts(full, self.expert_parts(name)))
 
     def dispatch(self) -> str:
         cfg = self.cfg
-        if self.expert_group is not None:
-            return "capacity"
         name = cfg.moe_dispatch
         if name == "auto":
-            name = _RESOLVED.get(_shape_key(cfg), "capacity")
+            name = "capacity" if self.expert_group is not None else \
+                _RESOLVED.get(_shape_key(cfg), "capacity")
         if name not in DISPATCHES:
             raise ValueError(f"moe_dispatch must be 'auto' or one of {DISPATCHES}, "
                              f"got {cfg.moe_dispatch!r}")
@@ -380,8 +450,13 @@ class MoELayer(nn.Module):
         xd = x.to(cfg.dtype)
         weights = [w.to(cfg.dtype) for w in self.experts()]
         gates = gate_vals.to(cfg.dtype)
+        # The experts' inputs meet a part of every product on each rank of
+        # both groups; the gates meet only this expert rank's pairs (the
+        # tensor ranks combine whole outputs, `_expert_outputs`).
+        for group in (self.expert_group, self.tensor_group):
+            if group is not None:
+                xd = copy_to_group(xd, group)
         if self.expert_group is not None:
-            xd = copy_to_group(xd, self.expert_group)
             gates = copy_to_group(gates, self.expert_group)
         if dispatch == "capacity":
             out = self._capacity(xd, gate_idx, gates, expert_mask, weights)
@@ -392,32 +467,52 @@ class MoELayer(nn.Module):
             out = reduce_from_group(out, self.expert_group)
         return out, aux
 
+    def _expert_outputs(self, eo):
+        """The experts' outputs, whole: where F is split over "tensor", the
+        partials summed over the group."""
+        if self.tensor_group is None:
+            return eo
+        return reduce_from_group(eo, self.tensor_group)
+
     def _gmm(self, x, gate_idx, gates, weights):
-        """Expert-sorted rows in the tile-aligned layout through K4/K5."""
+        """Expert-sorted rows in the tile-aligned layout through K4/K5. On
+        an expert mesh, only the pairs routed to this rank's experts, with
+        their local expert ids: their count, read back to the host, sizes
+        the layout."""
         b, t, d = x.shape
-        e, k = self.cfg.num_experts, self.cfg.num_experts_per_tok
+        k = self.cfg.num_experts_per_tok
         n = b * t * k
         dev = x.device
-        order, dst, tile_group, m_pad = aligned_group_layout(gate_idx.reshape(n), e)
-        tok_sorted = (torch.arange(n, device=dev) // k)[order]
+        group = gate_idx.reshape(n)
+        tok = torch.arange(n, device=dev) // k
+        gate = gates.reshape(n)
+        experts = self.local_experts()
+        if self.expert_group is not None:
+            pairs = ((group >= experts.start) & (group < experts.stop)).nonzero().squeeze(1)
+            group, tok, gate = group[pairs] - experts.start, tok[pairs], gate[pairs]
+        m = group.shape[0]
+        order, dst, tile_group, m_pad = aligned_group_layout(
+            group, experts.stop - experts.start)
+        tok_sorted = tok[order]
         # Row gather into the layout: slot -> sorted pair, padding slots
         # reading the zero row b * t.
-        inv = torch.full((m_pad,), n, dtype=torch.long, device=dev).scatter_(
-            0, dst, torch.arange(n, device=dev))
+        inv = torch.full((m_pad,), m, dtype=torch.long, device=dev).scatter_(
+            0, dst, torch.arange(m, device=dev))
         src_tok = torch.cat([tok_sorted, torch.full((1,), b * t, device=dev)])[inv]
         x_pad = torch.cat([x.reshape(b * t, d), x.new_zeros((1, d))])
         lhs = x_pad[src_tok]  # [m_pad, D]
         w_gate, w_up, w_down = weights
         act = F.silu(gmm(lhs, w_gate, tile_group)) * gmm(lhs, w_up, tile_group)
-        eo = gmm(act, w_down, tile_group)
-        pair_out = eo[dst] * gates.reshape(n)[order][:, None]
+        eo = self._expert_outputs(gmm(act, w_down, tile_group))
+        pair_out = eo[dst] * gate[order][:, None]
         out = x.new_zeros((b * t, d)).index_add_(0, tok_sorted, pair_out)
         return out.reshape(b, t, d)
 
     def _ragged(self, x, gate_idx, gates, weights):
-        """Exact groups: every pair through its own expert. Each expert's
-        product runs over all rows and keeps its own: a loop over the E
-        experts, with no group size read back to the host."""
+        """Exact groups: every pair through its own expert. Each of this
+        rank's experts runs its product over all rows and keeps its own: a
+        loop with no group size read back to the host; the pairs of other
+        ranks' experts keep a zero row."""
         b, t, d = x.shape
         k = self.cfg.num_experts_per_tok
         n = b * t * k
@@ -427,10 +522,10 @@ class MoELayer(nn.Module):
         xs = x.reshape(b * t, d)[tok_sorted]
         e_sorted = e_flat[order][:, None]
         eo = torch.zeros_like(xs)
-        for i in range(self.cfg.num_experts):
+        for i in range(weights[0].shape[0]):
             ffn = _expert_ffn(xs, *(w[i] for w in weights))
-            eo = torch.where(e_sorted == i, ffn, eo)
-        pair_out = eo * gates.reshape(n)[order][:, None]
+            eo = torch.where(e_sorted == self.first_expert + i, ffn, eo)
+        pair_out = self._expert_outputs(eo) * gates.reshape(n)[order][:, None]
         out = x.new_zeros((b * t, d)).index_add_(0, tok_sorted, pair_out)
         return out.reshape(b, t, d)
 
@@ -441,7 +536,7 @@ class MoELayer(nn.Module):
         b, t, d = x.shape
         k = self.cfg.num_experts_per_tok
         nk = t * k
-        slot, c = capacity_slots(gate_idx, expert_mask, self.cfg)
+        slot, c = capacity_slots(gate_idx, expert_mask, self.cfg, self.seq)
         experts = self.local_experts()
         lo, n_local = experts.start * c, (experts.stop - experts.start) * c
         dev = x.device
@@ -455,7 +550,8 @@ class MoELayer(nn.Module):
         w_gate, w_up, w_down = weights
         h = torch.einsum("ebcd,edf->ebcf", expert_in, w_gate)
         u = torch.einsum("ebcd,edf->ebcf", expert_in, w_up)
-        expert_out = torch.einsum("ebcf,efd->ebcd", F.silu(h) * u, w_down)
+        expert_out = self._expert_outputs(
+            torch.einsum("ebcf,efd->ebcd", F.silu(h) * u, w_down))
         expert_out = expert_out.transpose(0, 1).reshape(b, n_local, d)
         eo_pad = torch.cat([expert_out, x.new_zeros((b, 1, d))], dim=1)
         mine = (slot >= lo) & (slot < lo + n_local)
@@ -485,16 +581,15 @@ class MixtralForCausalLM(nn.Module):
     card unless the caller passes one) from `generator`, seed 0 by default:
     normal with std 1/sqrt(fan_in) for projections, router and experts,
     1/sqrt(hidden) for the embedding, ones for norm scales. Every rank of
-    a `mesh` draws the same weights and keeps its experts; `forward` takes
-    this rank's rows (and sequence shard; `parallel.step.shard_batch`)."""
+    a `mesh` draws the same weights and keeps its part of the split ones
+    (`split_parts`); over "tensor" the attention's projections are then
+    DTensors (`parallel.mesh.layer_plan`). `forward` takes this rank's rows
+    (and sequence shard; `parallel.step.shard_batch`)."""
 
     def __init__(self, cfg: MixtralConfig, mesh=None, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if mesh is not None and mesh["tensor"].size() > 1:
-            raise ValueError("the Mixtral port splits experts, rows and the sequence; "
-                             "its tensor parallelism is not ported")
         self.cfg = cfg
         self.seq_rank = mesh["seq"].get_local_rank() if _uses_ring(mesh) else 0
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype,
@@ -507,6 +602,19 @@ class MixtralForCausalLM(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
+        tensor = _split(mesh, "tensor")
+        self.tensor_rank = 0 if tensor is None else tensor[1]
+        if tensor is not None:
+            from torch.distributed.tensor.parallel import parallelize_module
+
+            from ..parallel.mesh import layer_plan
+
+            plan = {}
+            for i in range(cfg.num_layers):
+                plan.update(layer_plan(f"layers.{i}.", mlp=False))
+            # Every rank drew the same weights: each keeps its part, with
+            # no exchange.
+            parallelize_module(self, mesh["tensor"], plan, src_data_rank=None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_parameters(self, generator)
@@ -546,8 +654,39 @@ def moe_lm_loss(model: MixtralForCausalLM, input_ids: torch.Tensor,
     return loss
 
 
-def shard_experts(state: Dict[str, torch.Tensor], model: MixtralForCausalLM) -> Dict[str, torch.Tensor]:
-    """A single-device state dict cut to `model`'s experts: each expert
-    tensor [E, ...] sliced to this rank's, everything else as it is."""
-    experts = model.layers[0].moe.local_experts()
-    return {name: (w[experts] if is_expert_param(name) else w) for name, w in state.items()}
+def split_parts(model: MixtralForCausalLM) -> Dict[str, List[Tuple[int, int, int]]]:
+    """For each parameter that `model`'s mesh splits, the narrows
+    (`take_parts`) that cut this rank's part out of the single-device
+    parameter: the experts and their part of F, and under tensor
+    parallelism the attention's DTensor shards."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    parts = {}
+    for prefix, module in model.named_modules():
+        if isinstance(module, MoELayer):
+            for name in EXPERT_PARAMS:
+                parts[f"{prefix}.{name}"] = module.expert_parts(name)
+    for name, p in model.named_parameters():
+        if isinstance(p, DTensor):
+            (place,) = p.placements
+            assert isinstance(place, Shard), (name, place)
+            n = p.to_local().shape[place.dim]
+            parts[name] = [(place.dim, model.tensor_rank * n, n)]
+    return {name: p for name, p in parts.items() if p}
+
+
+def shard_state(state: Dict[str, torch.Tensor], model: MixtralForCausalLM) -> Dict[str, torch.Tensor]:
+    """A single-device state dict cut to `model`'s parts (`split_parts`),
+    a DTensor parameter's as a DTensor of its placements, everything else
+    as it is."""
+    from torch.distributed.tensor import DTensor
+
+    params = dict(model.named_parameters())
+    parts = split_parts(model)
+    out = {}
+    for name, w in state.items():
+        w, p = take_parts(w, parts.get(name, [])), params.get(name)
+        if isinstance(p, DTensor):
+            w = DTensor.from_local(w.to(p.device), p.device_mesh, p.placements, run_check=False)
+        out[name] = w
+    return out

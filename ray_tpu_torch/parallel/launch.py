@@ -20,8 +20,10 @@ and its train steps (`run_llama_train`), the step of `shard_params` on
 data x fsdp x seq x tensor (`run_sharded_grads`), the pipeline of the
 reference's tanh stages (`run_pipeline`) and of a Llama's decoder layers
 (`run_pipeline_llama`, with `sequential_llama` its one-process oracle),
-and the expert-parallel Mixtral's gradients (`run_mixtral_grads`) and
-train steps (`run_mixtral_train`). They import the port only.
+and the Mixtral on a mesh: its gradients (`run_mixtral_grads`, and
+`run_mixtral_meshes` for several meshes in one world) and train steps
+(`run_mixtral_train`, and `run_mixtral_trains` for several). They
+import the port only.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch.distributed as dist
 from .._device import DeviceLike, resolve_device
 from ..train import LossFn, lm_loss, make_optimizer, timed_steps
 from .mesh import MeshSpec
-from .step import forward_backward, shard_batch, train_step
+from .step import batch_slices, forward_backward, shard_batch, train_step
 
 POLL_S = 0.05
 # Bounds every collective of a world: a rank that waits longer raises.
@@ -210,6 +212,13 @@ def run_llama_grads(rank, world_size, spec: MeshSpec, cfgs, weights, ids: np.nda
     return out
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor, a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def param_digest(model: torch.nn.Module,
                  keep: Callable[[str], bool] = lambda name: True) -> Tuple[float, float]:
     """Sum and sum of squares of every parameter whose name `keep` takes,
@@ -219,7 +228,7 @@ def param_digest(model: torch.nn.Module,
     with torch.no_grad():
         for name, p in model.named_parameters():
             if keep(name):
-                x = p.detach().double()
+                x = _local(p).detach().double()
                 total += float(x.sum())
                 squares += float((x * x).sum())
     return total, squares
@@ -434,51 +443,92 @@ def run_pipeline_llama(rank, world_size, cfg, layers_per_stage: int, ids: np.nda
 
 
 def _mixtral(cfg, mesh, weights, device):
-    from ..models.mixtral import MixtralForCausalLM, shard_experts
+    from ..models.mixtral import MixtralForCausalLM, shard_state
 
     model = MixtralForCausalLM(cfg, mesh, device=device)  # seed 0 on every rank
     if weights is not None:
-        model.load_state_dict(shard_experts(weights, model))
+        model.load_state_dict(shard_state(weights, model))
     return model
 
 
 def _expert_coordinates(mesh) -> Dict[str, int]:
     return {"expert_rank": mesh["expert"].get_local_rank(),
+            "tensor_rank": mesh["tensor"].get_local_rank(),
+            "seq_rank": mesh["seq"].get_local_rank(),
             "data_rank": mesh["data"].get_local_rank() * mesh["fsdp"].size()
             + mesh["fsdp"].get_local_rank()}
 
 
-def run_mixtral_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.ndarray,
-                      device: DeviceLike = None) -> Dict[str, Any]:
-    """The Mixtral built on the mesh (experts split over "expert", rows
-    over "data" and "fsdp") on this rank's rows of `ids`: their logits,
-    the global `moe_lm_loss` and every gradient, reduced over the mesh
-    (expert weights: this rank's experts only)."""
-    from ..models.mixtral import moe_lm_loss
+def _mixtral_grads(spec: MeshSpec, cfg, weights, ids: np.ndarray,
+                   device: torch.device) -> Dict[str, Any]:
+    from ..models.mixtral import moe_lm_loss, split_parts
 
-    device = _rank_device(device)
     mesh = spec.build(device.type)
     ids_l, targets_l = _local_batch(ids, mesh, device)
     model = _mixtral(cfg, mesh, weights, device)
     with torch.no_grad():
         logits = model(ids_l).cpu()
     loss = forward_backward(model, ids_l, targets_l, moe_lm_loss, mesh=mesh)
+    rows, cols = batch_slices(ids.shape, mesh)
     return {"logits": logits, "loss": float(loss), **_expert_coordinates(mesh),
-            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+            "block": ((rows.start, rows.stop), (cols.start, cols.stop)),
+            "parts": split_parts(model),
+            "grads": {n: _local(p.grad).cpu() for n, p in model.named_parameters()}}
+
+
+def run_mixtral_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.ndarray,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """The Mixtral built on the mesh (experts split over "expert", each
+    expert's F and the attention heads over "tensor", rows over "data"
+    and "fsdp", the sequence over "seq") on this rank's block of `ids`:
+    its logits, the global `moe_lm_loss` and every gradient, reduced over
+    the mesh (split weights: this rank's part only, which the `parts`
+    narrows cut out of the whole one, `models.mixtral.take_parts`), with the
+    rank's coordinates and the (rows, columns) of its block."""
+    return _mixtral_grads(spec, cfg, weights, ids, _rank_device(device))
+
+
+def run_mixtral_meshes(rank, world_size, cases: Sequence[Tuple[MeshSpec, Any]], weights,
+                       ids: np.ndarray, device: DeviceLike = None) -> List[Dict[str, Any]]:
+    """`run_mixtral_grads` for each (mesh spec, config) of `cases` in turn,
+    in one world."""
+    device = _rank_device(device)
+    return [_mixtral_grads(spec, cfg, weights, ids, device) for spec, cfg in cases]
+
+
+def _mixtral_train(spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
+                   device: torch.device) -> Dict[str, Any]:
+    from ..models.mixtral import moe_lm_loss, split_parts
+    from ..ops import gmm as G
+
+    mesh = spec.build(device.type)
+    model = _mixtral(cfg, mesh, None, device)
+    split = split_parts(model)
+    G.reset_launch_counts()
+    out = _train(model, mesh, ids, steps, moe_lm_loss, device)
+    return {**out, **_expert_coordinates(mesh), "gmm_launches": dict(G.LAUNCHES),
+            "replicated_digest": param_digest(model, lambda n: n not in split)}
 
 
 def run_mixtral_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
                       device: DeviceLike = None) -> Dict[str, Any]:
-    """The expert-parallel Mixtral train step: the weights of seed 0,
+    """The Mixtral train step on a mesh: the weights of seed 0,
     `moe_lm_loss`, AdamW of `train.make_optimizer`; one step, then `steps`
-    timed ones. Returns what `run_llama_train` does, the digest of the
-    parameters that are not split over experts, and the rank's expert and
-    data coordinates."""
-    from ..models.mixtral import is_expert_param, moe_lm_loss
+    timed ones. Returns what `run_llama_train` does, the grouped-matmul
+    kernels' launches over all steps (`gmm_launches`), the digest of the
+    parameters that the mesh does not split, and the rank's coordinates."""
+    return _mixtral_train(spec, cfg, ids, steps, _rank_device(device))
 
+
+def run_mixtral_trains(rank, world_size, cases: Sequence[Tuple[MeshSpec, Any]],
+                       ids: np.ndarray, steps: int,
+                       device: DeviceLike = None) -> List[Dict[str, Any]]:
+    """`run_mixtral_train` for each (mesh spec, config) of `cases` in turn,
+    in one world, the card's cache emptied between them."""
     device = _rank_device(device)
-    mesh = spec.build(device.type)
-    model = _mixtral(cfg, mesh, None, device)
-    out = _train(model, mesh, ids, steps, moe_lm_loss, device)
-    return {**out, **_expert_coordinates(mesh),
-            "replicated_digest": param_digest(model, lambda n: not is_expert_param(n))}
+    out = []
+    for spec, cfg in cases:
+        out.append(_mixtral_train(spec, cfg, ids, steps, device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out

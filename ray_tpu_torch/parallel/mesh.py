@@ -171,6 +171,21 @@ def spec_for_param(path: Tuple[str, ...], shape: Tuple[int, ...]) -> Spec:
     return (None,) * len(shape)
 
 
+def layer_plan(prefix: str, mlp: bool = True) -> Dict[str, Any]:
+    """Tensor parallelism's plan for the decoder layer at `prefix`
+    (Megatron's split): column-parallel q, k and v projections, a
+    row-parallel o projection, and with `mlp` the dense MLP's
+    column-parallel gate and up and row-parallel down projections. The
+    attention then holds H / tp query and Hkv / tp key-value heads."""
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
+
+    cols = ("attn.q_proj", "attn.k_proj", "attn.v_proj") + (
+        ("mlp.gate_proj", "mlp.up_proj") if mlp else ())
+    rows = ("attn.o_proj",) + (("mlp.down_proj",) if mlp else ())
+    return {**{prefix + name: ColwiseParallel() for name in cols},
+            **{prefix + name: RowwiseParallel() for name in rows}}
+
+
 def shard_params(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Places a Llama (`models.llama.LlamaForCausalLM`) on the mesh, in
     place: tensor parallelism over "tensor" (`parallelize_module`:
@@ -187,11 +202,7 @@ def shard_params(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     reference's `shard_params` only places arrays and leaves the
     collectives to GSPMD."""
     from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor.parallel import (
-        ColwiseParallel,
-        RowwiseParallel,
-        parallelize_module,
-    )
+    from torch.distributed.tensor.parallel import RowwiseParallel, parallelize_module
 
     if mesh["expert"].size() > 1:
         raise ValueError("shard_params places a Llama; experts are split over the "
@@ -205,12 +216,7 @@ def shard_params(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
                                             output_layouts=Replicate()),
         }
         for i in range(len(model.layers)):
-            pre = f"layers.{i}."
-            for name in ("attn.q_proj", "attn.k_proj", "attn.v_proj",
-                         "mlp.gate_proj", "mlp.up_proj"):
-                plan[pre + name] = ColwiseParallel()
-            for name in ("attn.o_proj", "mlp.down_proj"):
-                plan[pre + name] = RowwiseParallel()
+            plan.update(layer_plan(f"layers.{i}."))
         parallelize_module(model, mesh["tensor"], plan)
 
     names = {id(p): name for name, p in model.named_parameters()}

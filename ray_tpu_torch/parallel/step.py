@@ -16,7 +16,9 @@ explicit:
 
 A model placed by `parallel.mesh.shard_params` holds DTensor parameters,
 whose gradients FSDP2 and tensor parallelism reduce over "data", "fsdp"
-and "tensor"; only their sum over "seq" is added here.
+and "tensor"; only their sum over "seq" is added here. A DTensor over
+"tensor" alone (a Mixtral's attention, `models.mixtral`) is also averaged
+over "data" and "fsdp" here.
 """
 from __future__ import annotations
 
@@ -62,10 +64,11 @@ def shard_batch(ids: torch.Tensor, targets: torch.Tensor,
     return ids[block], targets[block]
 
 
-def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum over "seq", mean over "data" and "fsdp", in place."""
+def _reduce(t: torch.Tensor, mesh, batch_axes: Tuple[str, ...] = BATCH_AXES) -> torch.Tensor:
+    """Sum over "seq", mean over `batch_axes` ("data" and "fsdp"), in
+    place."""
     all_reduce_sum_(t, mesh.get_group("seq"))
-    for axis in BATCH_AXES:
+    for axis in batch_axes:
         n = mesh[axis].size()
         if n > 1:
             all_reduce_sum_(t, mesh.get_group(axis)).div_(n)
@@ -81,26 +84,26 @@ def _flat_(grads, reduce) -> None:
 
 def reduce_gradients(model: torch.nn.Module, mesh) -> None:
     """Reduces every plain-tensor gradient over the mesh (`_reduce`), one
-    flat buffer per dtype. A DTensor gradient (`parallel.mesh.shard_params`)
-    comes out of backward reduced by FSDP2 over "data" and "fsdp" and by
-    tensor parallelism over "tensor"; its local shard is then summed over
-    "seq" here, through `all_reduce_sum_`, so that host staging applies.
-    An expert axis needs nothing: its ranks see the same rows, and the
-    MoE layer's own collectives leave every replicated gradient whole on
-    each of them (`models.mixtral`)."""
-    plain, sharded = {}, {}
+    flat buffer per dtype. A DTensor gradient comes out of backward
+    reduced over the axes of its own mesh: by FSDP2 over "data" and
+    "fsdp" (`parallel.mesh.shard_params`) and by tensor parallelism over
+    "tensor"; its local shard is then summed over "seq" and averaged over
+    the batch axes its mesh lacks here, through `all_reduce_sum_`, so that
+    host staging applies. An expert axis needs nothing: its ranks see the
+    same rows, and the MoE layer's own collectives leave every replicated
+    gradient whole on each of them (`models.mixtral`)."""
+    buffers = {}
     for p in model.parameters():
         if p.grad is None:
             continue
-        if isinstance(p.grad, DTensor):
-            sharded.setdefault(p.grad.dtype, []).append(p.grad.to_local())
-        else:
-            plain.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in plain.values():
-        _flat_(grads, lambda t: _reduce(t, mesh))
-    if mesh["seq"].size() > 1:
-        for grads in sharded.values():
-            _flat_(grads, lambda t: all_reduce_sum_(t, mesh.get_group("seq")))
+        grad, axes = p.grad, BATCH_AXES
+        if isinstance(grad, DTensor):
+            axes = tuple(a for a in BATCH_AXES if a not in grad.device_mesh.mesh_dim_names)
+            grad = grad.to_local()
+        buffers.setdefault((grad.dtype, axes), []).append(grad)
+    for (_, axes), grads in buffers.items():
+        if axes or mesh["seq"].size() > 1:
+            _flat_(grads, lambda t, axes=axes: _reduce(t, mesh, axes))
 
 
 def forward_backward(model, ids, targets, loss_fn: LossFn = lm_loss, *, mesh) -> torch.Tensor:

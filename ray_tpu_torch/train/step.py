@@ -20,9 +20,16 @@ LossFn = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]
 def make_optimizer(model: torch.nn.Module) -> torch.optim.AdamW:
     """AdamW as the reference's `optax.adamw(3e-4, b1=0.9, b2=0.95)`:
     optax decays every leaf by 1e-4 (torch's default is 1e-2). With bf16
-    parameters both moments are bf16, as `mu_dtype=bfloat16` gives."""
-    return torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.95),
-                             eps=1e-8, weight_decay=1e-4)
+    parameters both moments are bf16, as `mu_dtype=bfloat16` gives. A
+    model with both DTensor and plain parameters (a Mixtral on a tensor
+    axis) gets a group of each: a foreach update takes no mix of them."""
+    from torch.distributed.tensor import DTensor
+
+    params = list(model.parameters())
+    kinds = [[p for p in params if not isinstance(p, DTensor)],
+             [p for p in params if isinstance(p, DTensor)]]
+    return torch.optim.AdamW([{"params": g} for g in kinds if g], lr=3e-4,
+                             betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-4)
 
 
 def lm_loss(model, ids, targets):

@@ -14,6 +14,14 @@
   the head has read that submit, and fails with "not found in GCS". The
   port registers a function with the head, and waits for the answer,
   before its first call is submitted.
+- A head killed after an actor's creation finished but before a persist
+  tick wrote it ALIVE restores the actor PENDING. The reference queues
+  its creation at once and refuses the surviving worker's claim, which
+  drops the live instance: a second instance starts from scratch, or
+  calls find the actor gone. The port holds such a creation for the
+  recovery window and takes the claim, so the instance and its state
+  survive: a head whose persist never records the creation's finish,
+  killed under a connected driver and a node daemon.
 
 Every test has a deadline after which it fails instead of hanging.
 """
@@ -322,3 +330,84 @@ def test_a_leased_call_never_reaches_a_worker_before_the_head_knows_its_function
     assert fresh._function_id in gcs.functions
     rest = [fresh.remote(i) for i in range(1, 4)]
     assert ray_tpu_torch.get([first] + rest, timeout=60) == [0, 2, 4, 6]
+
+
+# The restarted head's recovery window in the failover case below.
+GRACE_S = 10.0
+# Loaded by the first head of `test_an_actor_alive_after_the_last_persist_survives_a_head_failover`
+# (and by nothing after it): its creation finishes never reach a persist tick.
+_STALE_ACTORS_SITECUSTOMIZE = """
+import os
+
+_flag = os.environ.get("RTPT_TEST_STALE_ACTORS_FLAG")
+if _flag and not os.path.exists(_flag):
+    open(_flag, "w").close()
+    from ray_tpu_torch._private import gcs as _gcs
+
+    _tables = dict(_gcs.GcsServer._TABLES_OF_TYPE)
+    for _mtype in ("task_done", "task_done_batch"):
+        _tables[_mtype] = tuple(t for t in _tables[_mtype] if t != "actors")
+    _gcs.GcsServer._TABLES_OF_TYPE = _tables
+"""
+
+
+def test_an_actor_alive_after_the_last_persist_survives_a_head_failover(tmp_path):
+    from ray_tpu_torch.cluster_utils import DaemonCluster, SupervisedHead, _pinned_pythonpath
+
+    inject = tmp_path / "inject"
+    inject.mkdir()
+    (inject / "sitecustomize.py").write_text(_STALE_ACTORS_SITECUSTOMIZE)
+    flag, inits = tmp_path / "first-head", tmp_path / "inits"
+    head = SupervisedHead(session_dir=str(tmp_path / "sess"), env={
+        "RAY_TPU_TORCH_head_recovery_grace_s": str(GRACE_S),
+        "RTPT_TEST_STALE_ACTORS_FLAG": str(flag),
+        "PYTHONPATH": os.pathsep.join([str(inject), _pinned_pythonpath()]),
+    })
+    cluster = None
+    try:
+        ray_tpu_torch.init(address=head.address)
+        cluster = DaemonCluster.attach(head.tcp_address, head.authkey)
+        cluster.add_node(num_cpus=2)
+
+        @ray_tpu_torch.remote
+        class Counter:
+            def __init__(self, log):
+                with open(log, "a") as f:
+                    f.write(f"{os.getpid()}\n")
+                self.n = 0
+
+            def incr(self):
+                self.n += 1
+                return self.n
+
+        counter = Counter.remote(str(inits))
+        assert ray_tpu_torch.get(counter.incr.remote(), timeout=60) == 1
+        assert flag.exists()  # the first head ran with its creation finishes unpersisted
+        time.sleep(1.0)  # persist ticks pass; none writes the actor ALIVE
+        head.kill()
+        assert head.wait_restarted(1, timeout=60), "head never came back"
+        restarted = time.monotonic()
+        value = None
+        while value is None and time.monotonic() < restarted + 60:
+            try:
+                value = ray_tpu_torch.get(counter.incr.remote(), timeout=20)
+            except Exception:  # noqa: BLE001 - mid-recovery
+                time.sleep(0.5)
+        # Past the recovery window, where an unclaimed creation would run.
+        time.sleep(max(0.0, restarted + GRACE_S + 2 - time.monotonic()))
+        # The same instance, its count kept, and no second one from scratch.
+        assert value == 2, value
+        assert len(inits.read_text().split()) == 1, inits.read_text()
+        assert ray_tpu_torch.get(counter.incr.remote(), timeout=20) == 3
+    finally:
+        if cluster is not None:
+            for p in list(cluster._daemons):
+                try:
+                    cluster.kill_node(p)
+                except Exception:  # noqa: BLE001
+                    pass
+        try:
+            ray_tpu_torch.shutdown()
+        except Exception:  # noqa: BLE001
+            pass
+        head.stop()

@@ -227,7 +227,7 @@ def test_port_imports_nothing_of_the_reference():
         "ray_tpu_torch._private.client_proxy", "ray_tpu_torch._private.runtime_env_plugins",
         "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.multiprocessing",
         "ray_tpu_torch.util.joblib", "ray_tpu_torch.experimental.tqdm_ray",
-        "ray_tpu_torch._private.ray_perf",
+        "ray_tpu_torch._private.ray_perf", "ray_tpu_torch._private.native_tools",
     ]
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.train, ray_tpu_torch.tune, "
             "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert, "
@@ -238,6 +238,23 @@ def test_port_imports_nothing_of_the_reference():
                          timeout=DEADLINE_S, check=True,
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.stdout.strip() == "[]"
+
+
+def test_port_builds_only_its_own_sources():
+    """Every source the port compiles lies in `ray_tpu_torch/`: the object
+    store's and the codec's (`_SRC` of `native_store` and `fastpath`), the
+    C client's and the stress harness's (`native_tools`), and the CUDA
+    kernels' (`ops._build.CSRC`); none is the reference's `native/`."""
+    from ray_tpu_torch._private import fastpath, native_store, native_tools
+    from ray_tpu_torch.ops import _build
+
+    port = os.path.realpath(os.path.dirname(ray_tpu_torch.__file__)) + os.sep
+    kernels = sorted(str(p) for p in _build.CSRC.glob("*.cu"))
+    sources = [native_store._SRC, fastpath._SRC, *native_tools.sources(), *kernels]
+    assert kernels and len(native_tools.sources()) == 5
+    for src in sources:
+        assert os.path.isfile(src), src
+        assert os.path.realpath(src).startswith(port), src
 
 
 # ------------------------------------------------------------------ tensors

@@ -7,8 +7,9 @@ of `ray_tpu_torch.parallel.launch`.
 CUDA tensors go over gloo on the card. On the CPU these branches would
 otherwise not run.
 
-`run_counted` runs one with the attention kernels' plain versions
-counted in `ops.attention.LAUNCHES`, as the kernels count their launches
+`run_counted` runs one with the attention and grouped-matmul kernels'
+plain versions counted in `ops.attention.LAUNCHES` and
+`ops.gmm.LAUNCHES`, as the kernels count their launches
 on the card, so that a CPU test can hold its launches to what
 `chip_smoke.py` expects of the card.
 
@@ -28,11 +29,9 @@ def run_staged(rank, world_size, fn, *args):
     return fn(rank, world_size, *args)
 
 
-def _counted(name, fn):
-    from ray_tpu_torch.ops import attention
-
+def _counted(launches, name, fn):
     def run(*args, **kwargs):
-        attention.LAUNCHES[name] += 1
+        launches[name] += 1
         return fn(*args, **kwargs)
 
     return run
@@ -40,7 +39,10 @@ def _counted(name, fn):
 
 def run_counted(rank, world_size, fn, *args):
     from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import gmm as G
 
-    for name in A.LAUNCHES:
-        setattr(A, f"_{name}_plain", _counted(name, getattr(A, f"_{name}_plain")))
+    for module in (A, G):
+        for name in module.LAUNCHES:
+            plain = f"_{name}_plain"
+            setattr(module, plain, _counted(module.LAUNCHES, name, getattr(module, plain)))
     return fn(rank, world_size, *args)
