@@ -283,7 +283,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    per call in the actor; ms per call beside this process's forward;
    (c) the runtime's native object store and codec built from
    `ray_tpu_torch/_private/csrc/` and live (a failed build fails the
-   phase; nothing falls back).
+   phase; nothing falls back);
+28. the runtime under faults, on a runtime of the phase's own under a
+   temp root of its own, with a seeded chaos schedule (FAULT_SPEC, seed
+   FAULT_SEED, printed) in every process of it, delaying and duplicating
+   task and return messages at the transport, and the lock witness armed
+   in every process (`RAY_TPU_TORCH_lock_witness=1`, one sidecar file);
+   both are removed after the phase. (a) A `num_gpus=1`,
+   `max_restarts=1` actor builds SERVE_MODEL from weights this process
+   put in the object store and answers phase 23's requests; after
+   FAULT_KILL_AFTER answers its worker is SIGKILLed, and the restarted
+   actor answers the rest from a new pid on this card: every row within
+   SERVE_LOGITS_REL of this process's forward, K1 once per layer per
+   answer in each incarnation. (b) A `num_gpus=1`, `max_retries=1` task
+   takes FAULT_STEPS of phase 5's steps; the chaos rule FAULT_KILL_RULE
+   kills its first attempt after its first step, and the retry's losses
+   are phase 5's first FAULT_STEPS bitwise, K1-K3 2L/L/L a step in its
+   worker. (c) No lock-order inversion in any process of (a) and (b).
+   Prints the seconds of the put, the actor's start and restart (split
+   into the wait for its constructor, its get, build and load) and the
+   retry, and the faults injected in each worker.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -455,15 +474,36 @@ PIP_ATTN = dict(bh=32, t=2048, d=128)
 # and a router near-tie then moves tokens between experts on one side
 # only, which decides a 1e-3 loss comparison either way (this phase's
 # first bf16 runs read 1.35e-3 and 1.15e-3). In float32 on both sides the
-# comparison holds the split itself.
+# comparison holds the split itself. One timed step each keeps the whole
+# smoke near its time budget once phase 28 runs too.
 MESH_CASES = (
     ("expert gmm", dict(data=2, expert=2), "gmm", None),
     ("seq x expert capacity", dict(seq=2, expert=2), "capacity", None),
     ("tensor capacity", dict(data=2, tensor=2), "capacity", "float32"),
 )
-MESH_TIMED_STEPS = 2
+MESH_TIMED_STEPS = 1
 # Phase 27b: the C client's prompt (ids from RandomState(2)) and its calls.
 C_PROMPT_LEN, C_CALLS = 512, 10
+# Phase 28: the runtime under faults, on a runtime of the phase's own with
+# a seeded chaos schedule. FAULT_SPEC delays and duplicates task and return
+# messages where the transport delivers them: a task pushed to its worker
+# (execute_task) and an actor call (op_call) are delayed, a worker's batch
+# of finished tasks (task_done_batch) and an actor's reply (op_reply) are
+# duplicated and delayed. Each duplicate must be dropped by its receiver
+# (the batches' sequence numbers, the replies' request ids). 28a SIGKILLs
+# the actor's worker after FAULT_KILL_AFTER of phase 23's requests; 28b's
+# task takes FAULT_STEPS of phase 5's steps, and the rule
+# FAULT_KILL_RULE kills its first attempt after its first step (each
+# attempt passes the kill point FAULT_KILL_POINT.attempt<a>.step<s>).
+FAULT_SEED = 0x28FA
+FAULT_SPEC = ("execute_task=delay:0.3:1000:20000,op_call=delay:0.3:1000:20000,"
+              "task_done_batch=dup:0.3,task_done_batch=delay:0.3:1000:20000,"
+              "op_reply=dup:0.3,op_reply=delay:0.3:1000:20000")
+FAULT_KILL_POINT = "chip_smoke.faults"
+FAULT_KILL_RULE = f"kill:{FAULT_KILL_POINT}.attempt0.step1=1?role=worker"
+FAULT_KILL_AFTER = SERVE_REQUESTS // 2
+FAULT_STEPS = 2
+FAULT_TIMEOUT_S = 300
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -3993,6 +4033,324 @@ def phase_c_client(card, spec=None):
     return {"launches": launches, "skipped": skipped}
 
 
+class FaultLlama:
+    """28a's actor: the model built from weights that reach it through the
+    object store (the ref in the constructor's argument, read again when
+    the actor restarts); answers a request with its last position's
+    logits, float32 on the host. `stats` gives the wall clock at the
+    constructor's start and the seconds of its get, build and load."""
+
+    def __init__(self, spec, weights_refs):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.ops import attention as A
+
+        started = time.time()
+        self.spec = spec
+        t0 = time.perf_counter()
+        weights = rt.get(weights_refs[0], timeout=FAULT_TIMEOUT_S)
+        t1 = time.perf_counter()
+        self.model = surface_model(spec)
+        t2 = time.perf_counter()
+        self.model.load_state_dict(weights)
+        if spec["device"] == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        self.times = {"started": started, "get_s": t1 - t0, "build_s": t2 - t1,
+                      "load_s": time.perf_counter() - t2}
+        A.reset_launch_counts()
+
+    def answer(self, ids):
+        return surface_logits(self.model, ids, self.spec["device"]).cpu()
+
+    def stats(self):
+        import os
+
+        from ray_tpu_torch._private import chaos, lock_witness
+
+        faults = chaos.active()
+        return {"pid": os.getpid(), "witness": lock_witness.installed(),
+                "chaos": None if faults is None else dict(faults.stats), **self.times,
+                **surface_worker_stats()}
+
+
+def fault_train_task(spec, attempts_dir):
+    """28b's task: phase 5's model, seed and batch, FAULT_STEPS train
+    steps, K1-K3 counted here. An attempt's index is the number of
+    attempts before it (a file each in `attempts_dir`); after each step it
+    passes the kill point FAULT_KILL_POINT.attempt<a>.step<s>, where the
+    phase's chaos rule kills the first attempt after its first step."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import chaos, lock_witness
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.ops import attention as A
+
+    attempt = len(os.listdir(attempts_dir))
+    with open(os.path.join(attempts_dir, f"attempt{attempt}"), "w") as f:
+        f.write(f"{os.getpid()} {time.time()}\n")
+    model = surface_model(spec)
+    optimizer = train.make_optimizer(model)
+    vocab = CONFIGS[spec["model"]].vocab_size
+    ids = torch.as_tensor(np.random.RandomState(0).randint(0, vocab, (spec["batch"], spec["seq"])),
+                          dtype=torch.long, device=spec["device"])
+    targets = torch.roll(ids, -1, dims=1)
+    A.reset_launch_counts()
+    losses = []
+    for step in range(1, FAULT_STEPS + 1):
+        losses.append(float(train.train_step(model, optimizer, ids, targets)))
+        chaos.kill_point(f"{FAULT_KILL_POINT}.attempt{attempt}.step{step}")
+    faults = chaos.active()
+    return {"attempt": attempt, "pid": os.getpid(), "losses": losses, "ended": time.time(),
+            "witness": lock_witness.installed(),
+            "chaos": None if faults is None else dict(faults.stats), **surface_worker_stats()}
+
+
+def phase_faults(card, in_process, spec=None):
+    """Phase 28: the runtime under faults, on a runtime of the phase's own
+    under a temp root of its own, with FAULT_SPEC installed (seed
+    FAULT_SEED) in every process of it and the lock witness armed in every
+    process, all appending to one sidecar file. 28a: a num_gpus=1,
+    max_restarts=1 actor holding the model (its weights put by this
+    process) answers phase 23's requests; its worker is SIGKILLed after
+    FAULT_KILL_AFTER answers, and the restarted actor, in a new process on
+    the card, answers the rest; every row within SERVE_LOGITS_REL of this
+    process's forward, K1 counted in each incarnation. 28b: a num_gpus=1,
+    max_retries=1 task of FAULT_STEPS train steps whose first attempt the
+    chaos rule kills after its first step; the retry's losses are phase
+    5's first (`in_process`), bitwise. 28c: no lock-order inversion in any
+    process. With a spec whose device is the CPU (the rehearsal), the card
+    checks are listed, not made. Returns K1-K3's launches in the phase's
+    workers, the skipped checks and the readings."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import chaos, lock_witness
+    from ray_tpu_torch._private.config import RayConfig
+    from ray_tpu_torch.exceptions import RayActorError
+    from ray_tpu_torch.models.llama import CONFIGS
+
+    t_phase = time.perf_counter()
+    spec = spec or surface_spec()
+    device = spec["device"]
+    on_card = device == "cuda"
+    card_name = torch.cuda.get_device_name(0) if on_card else None
+    layers = CONFIGS[spec["model"]].num_layers
+    vocab = CONFIGS[spec["model"]].vocab_size
+    kill_after = spec["requests"] // 2
+    skipped = []
+
+    def card_check(ok, what):
+        if on_card:
+            check(ok, what)
+        else:
+            skipped.append(what.split(":")[0])
+
+    lengths = np.random.RandomState(0).randint(spec["min_len"], spec["max_len"] + 1,
+                                               spec["requests"])
+    ids_rng = np.random.RandomState(1)
+    requests = [ids_rng.randint(0, vocab, n).tolist() for n in lengths]
+    # The oracle, and the weights the actor is built from.
+    model = surface_model(spec)
+    want = [surface_logits(model, r, device).cpu() for r in requests]
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    weights_gb = sum(v.numel() * v.element_size() for v in weights.values()) / 1e9
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="rtpt")
+    attempts_dir = os.path.join(root, "attempts")
+    os.mkdir(attempts_dir)
+    sidecar = os.path.join(root, "lock_witness.log")
+    spec_text = f"{FAULT_SPEC},{FAULT_KILL_RULE}"
+    env = {"RAY_TPU_TORCH_TEMP_DIR": root, "RAY_TPU_TORCH_chaos_spec": spec_text,
+           "RAY_TPU_TORCH_chaos_seed": str(FAULT_SEED), lock_witness.ENV_VAR: "1",
+           lock_witness.FILE_ENV: sidecar}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    was_witnessed = lock_witness.installed()
+    lock_witness.install()
+    print(f"phase 28: chaos seed {FAULT_SEED}, spec {spec_text}", flush=True)
+    answers, readings = [], {}
+    init_kw = {} if spec["num_cpus"] is None else {"num_cpus": spec["num_cpus"]}
+    try:
+        rt.init(_system_config={"chaos_spec": spec_text, "chaos_seed": FAULT_SEED}, **init_kw)
+        check(chaos.active() is not None, "phase 28: no chaos schedule in the driver")
+        # The actor and the task ask for a GPU wherever the runtime has
+        # one: the card, or the CPU rehearsal's RAY_TPU_TORCH_NUM_GPUS.
+        gpus = 1 if rt.cluster_resources().get("GPU", 0) >= 1 else 0
+        check(gpus == 1 or not on_card, "phase 28: the runtime detected no GPU")
+        try:
+            # 28a. an actor restart on the card
+            t0 = time.perf_counter()
+            weights_ref = rt.put(weights)
+            put_s = time.perf_counter() - t0
+            del weights
+            submitted = time.time()
+            actor = rt.remote(num_gpus=gpus, max_restarts=1)(FaultLlama).remote(
+                spec, [weights_ref])
+            first = rt.get(actor.stats.remote(), timeout=FAULT_TIMEOUT_S)
+            ready_s = time.time() - submitted
+            for r in requests[:kill_after]:
+                answers.append(rt.get(actor.answer.remote(r), timeout=FAULT_TIMEOUT_S))
+            before = rt.get(actor.stats.remote(), timeout=FAULT_TIMEOUT_S)
+            os.kill(before["pid"], signal.SIGKILL)
+            killed = time.time()
+            t_kill = time.perf_counter()
+            restart_s, failed_calls = None, 0
+            for r in requests[kill_after:]:
+                deadline = time.perf_counter() + FAULT_TIMEOUT_S
+                while True:
+                    try:
+                        answers.append(rt.get(actor.answer.remote(r), timeout=FAULT_TIMEOUT_S))
+                        break
+                    except RayActorError:
+                        failed_calls += 1
+                        check(time.perf_counter() < deadline,
+                              "28a: the actor did not come back after its worker was killed")
+                        time.sleep(0.2)
+                if restart_s is None:
+                    restart_s = time.perf_counter() - t_kill
+            after = rt.get(actor.stats.remote(), timeout=FAULT_TIMEOUT_S)
+            rt.kill(actor)
+            del weights_ref
+            worst = 0.0
+            for i, (r, got, want_row) in enumerate(zip(requests, answers, want)):
+                got = torch.as_tensor(got)
+                rel = float((got - want_row).norm() / want_row.norm())
+                worst = max(worst, rel)
+                check(bool(torch.isfinite(got).all()) and got.shape == want_row.shape
+                      and rel <= SERVE_LOGITS_REL,
+                      f"28a: request {i} of {len(r)} tokens: logits relative error {rel:.3e}")
+            check(len(answers) == len(requests),
+                  f"28a: {len(answers)} answers to {len(requests)} requests")
+            check(after["pid"] != before["pid"],
+                  f"28a: the actor answers from pid {after['pid']} after its worker "
+                  f"{before['pid']} was killed")
+            check(before["witness"] and after["witness"],
+                  "28a: the lock witness is not armed in the actor's worker")
+            check(before["chaos"] is not None and after["chaos"] is not None,
+                  "28a: the chaos schedule is not installed in the actor's worker")
+            for label, seen in (("first", before), ("restarted", after)):
+                card_check(seen["card"] == card_name,
+                           f"28a card: the {label} actor ran on {seen['card']!r}")
+            k1_before = before["launches"].get("flash_fwd", 0)
+            k1_after = after["launches"].get("flash_fwd", 0)
+            card_check(k1_before == layers * kill_after > 0
+                       and k1_after == layers * (len(requests) - kill_after) > 0,
+                       f"28a launches: K1 launched {k1_before} times before the restart and "
+                       f"{k1_after} after, expected {layers} per answer, "
+                       f"{kill_after} and {len(requests) - kill_after} answers")
+            def start(seen, since):
+                return (f"{seen['started'] - since:.2f} s to the constructor, get "
+                        f"{seen['get_s']:.2f} s, build {seen['build_s']:.2f} s, load "
+                        f"{seen['load_s']:.2f} s")
+
+            print(f"28a: a num_gpus=1 max_restarts=1 {spec['model']} actor on {card} from "
+                  f"{weights_gb:.2f} GB of weights put in {put_s:.2f} s, "
+                  f"ready in {ready_s:.2f} s ({start(first, submitted)}; pid {first['pid']}, "
+                  f"CUDA_VISIBLE_DEVICES={first['visible']}); its worker SIGKILLed after "
+                  f"{kill_after} answers; restarted in a new pid {after['pid']} and answered "
+                  f"{restart_s:.2f} s after the kill ({start(after, killed)}; {failed_calls} "
+                  f"calls refused meanwhile); {len(answers)} rows "
+                  f"within {SERVE_LOGITS_REL} of this process's forward (worst {worst:.3e}); "
+                  f"K1 {k1_before} before the restart and {k1_after} after; faults injected "
+                  f"in the actor's workers {before['chaos']}, {after['chaos']}: ok", flush=True)
+            readings.update(put_s=put_s, ready_s=ready_s, restart_s=restart_s,
+                            refused_calls=failed_calls, worst_rel=worst,
+                            restart_to_constructor_s=after["started"] - killed,
+                            restart_get_s=after["get_s"], restart_build_s=after["build_s"],
+                            restart_load_s=after["load_s"])
+
+            # 28b. a task retry on the card
+            task = rt.remote(num_gpus=gpus, max_retries=1)(fault_train_task)
+            submitted = time.time()
+            out = rt.get(task.remote(spec, attempts_dir), timeout=FAULT_TIMEOUT_S)
+            retry_s = time.time() - submitted
+            attempts = sorted(os.listdir(attempts_dir))
+            check(attempts == ["attempt0", "attempt1"] and out["attempt"] == 1,
+                  f"28b: attempts {attempts}, the result from attempt {out['attempt']}, "
+                  f"expected the retry of one killed attempt")
+            with open(os.path.join(attempts_dir, "attempt0")) as f:
+                first_pid, first_started = f.read().split()
+            with open(os.path.join(attempts_dir, "attempt1")) as f:
+                retry_started = float(f.read().split()[1])
+            first_pid = int(first_pid)
+            first_started = float(first_started)
+            check(first_pid != out["pid"], f"28b: the retry ran in the killed pid {first_pid}")
+            want_losses = in_process["losses"][:FAULT_STEPS]
+            check(out["losses"] == want_losses,
+                  f"28b: the retry's losses {out['losses']} are not phase 5's first "
+                  f"{FAULT_STEPS} {want_losses} bitwise")
+            check(out["witness"], "28b: the lock witness is not armed in the task's worker")
+            check(out["chaos"] is not None,
+                  "28b: the chaos schedule is not installed in the task's worker")
+            card_check(out["card"] == card_name, f"28b card: the retry ran on {out['card']!r}")
+            per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+            card_check(out["launches"] == {k: v * FAULT_STEPS for k, v in per_step.items()},
+                       f"28b launches: the retry launched {out['launches']} in {FAULT_STEPS} "
+                       f"steps, expected {per_step} per step")
+            print(f"28b: a num_gpus=1 max_retries=1 task on {card}: attempt 0 (pid {first_pid}) "
+                  f"killed by the chaos rule after step 1, the retry (pid {out['pid']}, "
+                  f"CUDA_VISIBLE_DEVICES={out['visible']}) took {FAULT_STEPS} steps, losses "
+                  f"{out['losses']} bitwise phase 5's first {FAULT_STEPS}, {retry_s:.2f} s from "
+                  f"submit to result (attempt 0 started {first_started - submitted:.2f} s after "
+                  f"submit, the retry {retry_started - first_started:.2f} s after attempt 0, "
+                  f"its steps done {out['ended'] - retry_started:.2f} s after that); "
+                  f"launches {out['launches']}; faults injected in the "
+                  f"retry's worker {out['chaos']}: ok", flush=True)
+            readings.update(retry_s=retry_s, retry_losses=out["losses"],
+                            first_attempt_start_s=first_started - submitted,
+                            retry_start_s=retry_started - first_started,
+                            retry_steps_s=out["ended"] - retry_started)
+            stats = dict(chaos.active().stats)
+        finally:
+            rt.shutdown()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig._values["chaos_spec"] = ""
+        chaos.install("", 0)
+        driver_violations = [v.render() for v in lock_witness.violations()]
+        report = lock_witness.witness_report()
+        if not was_witnessed:
+            lock_witness.uninstall()
+    # 28c. the lock witness, in every process of 28a-b
+    side = ""
+    if os.path.exists(sidecar):  # a process writes it at its first inversion
+        with open(sidecar, encoding="utf-8") as f:
+            side = f.read()
+    shutil.rmtree(root, ignore_errors=True)
+    inversions = side.count("lock-order inversion")
+    check(inversions == 0 and not driver_violations,
+          f"28c: {inversions} lock-order inversions witnessed in the phase's processes, "
+          f"{len(driver_violations)} in this one:\n{side[:4000]}")
+    check(report["edges"] > 0, f"28c: the witness saw no lock order in this process: {report}")
+    print(f"28c: the lock witness armed in every process of 28a-b: 0 lock-order inversions "
+          f"(this process {report['edges']} lock-order edges over {report['sites']} sites); "
+          f"chaos faults injected in this process {stats}: ok", flush=True)
+    launches = {"flash_fwd": k1_before + k1_after + out["launches"].get("flash_fwd", 0),
+                "flash_bwd_dkv": out["launches"].get("flash_bwd_dkv", 0),
+                "flash_bwd_dq": out["launches"].get("flash_bwd_dq", 0)}
+    phase_s = time.perf_counter() - t_phase
+    readings["phase_s"] = phase_s
+    print(f"phase 28 on {card}: {phase_s:.1f} s; K1-K3 launches in its workers {launches}",
+          flush=True)
+    return {"launches": launches, "skipped": skipped, "readings": readings}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--job-driver"]:
         return job_driver()
@@ -4150,6 +4508,11 @@ def main() -> int:
     mesh_launches_by_case = phase_meshes(card)
     torch.cuda.empty_cache()
     c_client = phase_c_client(card)
+    torch.cuda.empty_cache()
+    # 28. the runtime under faults: an actor restart and a task retry on
+    # the card under a seeded chaos schedule, K1-K3 counted in the
+    # workers; the lock witness in every process
+    faults = phase_faults(card, llama_in_process)
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.
@@ -4179,6 +4542,10 @@ def main() -> int:
         # Phase 27a's meshes, summed over their ranks.
         kernels[-1]["mesh_launches"] = {label: n[name]
                                         for label, n in mesh_launches_by_case.items()}
+        # Phase 28's workers: 28a's actor in both incarnations (K1) and
+        # 28b's retry (K1-K3).
+        if name in faults["launches"]:
+            kernels[-1]["fault_launches"] = faults["launches"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

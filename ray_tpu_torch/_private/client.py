@@ -444,7 +444,7 @@ class CoreClient:
             for oid, borrowers in owned.items():
                 try:
                     loc = self.store.location_of(ObjectID(oid))
-                except Exception:  # noqa: BLE001
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- no local copy: the reconcile entry goes without a location and the head keeps its own
                     loc = None
                 items.append((oid, loc, borrowers))
             try:

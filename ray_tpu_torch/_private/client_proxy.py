@@ -379,7 +379,7 @@ class _Session:
                      "reason": "client disconnected"},
                     timeout=5,
                 )
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the session is closing: an actor the head no longer knows is already gone
                 pass
         with self._held_lock:
             self._held.clear()
@@ -389,7 +389,7 @@ class _Session:
             pass
         try:
             self.core.close()
-        except Exception:  # noqa: BLE001
+        except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
             pass
 
 
@@ -674,7 +674,7 @@ class ProxyClient:
         set_current(None)
         try:
             self.conn.close()
-        except Exception:  # noqa: BLE001
+        except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
             pass
 
 

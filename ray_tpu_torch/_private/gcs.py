@@ -1681,7 +1681,7 @@ class GcsServer:
                 try:
                     err = serialization.unpack(error_blob)
                     actor.death_reason += f": {type(err).__name__}: {err}"
-                except Exception:  # noqa: BLE001 - unreadable blob
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the death reason keeps the fact of the failure without the error's text
                     pass
             self._publish(
                 "ACTOR", aid.hex(),

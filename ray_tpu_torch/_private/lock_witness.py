@@ -31,8 +31,10 @@ re-acquisition adds no edge (no false positive); ``Condition`` /
 ``Event`` / ``Queue`` built on witnessed locks work unchanged via the
 ``_release_save``/``_acquire_restore``/``_is_owned`` protocol.
 
-Opt-in: set ``RAY_TPU_TORCH_lock_witness=1`` (tests/debug; ``make
-race-smoke`` runs a chaos/soak slice under it) — the env var is
+Opt-in: set ``RAY_TPU_TORCH_lock_witness=1`` (tests/debug; ``python -m
+ray_tpu_torch._lint --race`` runs the port's object-plane, chaos, actors
+and lock-witness test files under it and fails on any inversion that any
+process appends to its sidecar file) — the env var is
 inherited, so DaemonCluster heads/raylets/workers self-install via
 ``maybe_install()`` at their entry points. Never enabled in
 production paths by default.
@@ -374,6 +376,11 @@ class WitnessRLock:
 
     def _is_owned(self) -> bool:
         return self._owner == threading.get_ident()
+
+    def _recursion_count(self) -> int:
+        # The RLock API multiprocessing's resource tracker reads (Python
+        # 3.12) before it starts its process: the calling thread's depth.
+        return self._count if self._owner == threading.get_ident() else 0
 
     def _release_save(self):
         count = self._count

@@ -1369,7 +1369,7 @@ def bench_head_failover(cfg: Dict[str, float]):
             marker = f"pre_kill_{stats['kills']}".encode()
             try:
                 client.kv_put(marker, b"survives")
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the soak counts only the markers it reads back after the failover
                 pass
             time.sleep(0.5)  # let a persist tick capture the marker
             restarts_before = head.restarts
@@ -1483,11 +1483,11 @@ def bench_head_failover(cfg: Dict[str, float]):
             for proc in list(cluster._daemons):
                 try:
                     cluster.kill_node(proc)
-                except Exception:  # noqa: BLE001
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
                     pass
         try:
             ray_tpu_torch.shutdown()
-        except Exception:  # noqa: BLE001
+        except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
             pass
         head.stop()
         shutil.rmtree(session_dir, ignore_errors=True)
@@ -2726,7 +2726,7 @@ def bench_pressure_soak(cfg: Dict[str, float]):
         for oid in read_ids:
             try:
                 client.store.release(oid)
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the soak's accounting below reads the store's own counts
                 pass
         client._tracker.flush(client)
         leaked_bytes = 0

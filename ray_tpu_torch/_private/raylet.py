@@ -848,13 +848,13 @@ class NodeDaemon:
         self.transfer.shutdown()
         try:
             self.conn.close()
-        except Exception:  # noqa: BLE001
+        except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
             pass
         self.store.close()
         if self._pool is not None:
             try:
                 self._pool.destroy()
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
                 pass
 
     def wait(self):

@@ -316,8 +316,8 @@ class WorkerSpawner:
             try:
                 z.terminate()
                 z.wait(timeout=2)
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the zygote is killed below when it will not terminate
                 try:
                     z.kill()
-                except Exception:  # noqa: BLE001
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
                     pass

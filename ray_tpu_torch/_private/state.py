@@ -130,7 +130,7 @@ def timeline(filename: Optional[str] = None) -> Optional[List[Dict]]:
                     {**base, "ph": "i", "ts": ev["timestamp"] * 1e6,
                      "s": "t"}
                 )
-    except Exception:  # noqa: BLE001 - recorder disabled or old head
+    except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- recorder disabled or old head: the timeline goes without these rows
         pass
     try:
         # Chaos rows (pid "chaos"): every injected fault — message
@@ -221,7 +221,7 @@ def timeline(filename: Optional[str] = None) -> Optional[List[Dict]]:
                     "args": {**(ev.get("attrs") or {}), "entity": entity},
                 }
             )
-    except Exception:  # noqa: BLE001 - recorder disabled or old head
+    except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- recorder disabled or old head: the timeline goes without these rows
         pass
     try:
         # Failover rows (pid "failover"): HEAD_DOWN/HEAD_RECONNECT
@@ -348,7 +348,7 @@ def timeline(filename: Optional[str] = None) -> Optional[List[Dict]]:
                     "args": {**(ev.get("attrs") or {}), "entity": entity},
                 }
             )
-    except Exception:  # noqa: BLE001 - recorder disabled or old head
+    except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- recorder disabled or old head: the timeline goes without these rows
         pass
     if filename:
         with open(filename, "w") as f:

@@ -133,7 +133,7 @@ def init(
                     _global.client.request(
                         {"type": "subscribe_logs"}, timeout=5
                     )
-                except Exception:  # noqa: BLE001
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- logs to the driver are best-effort; the workers' log files keep every line
                     pass
             atexit.register(_atexit_shutdown)
             return _global.client
@@ -235,7 +235,7 @@ def shutdown():
         from ..util import pubsub as _pubsub
 
         _pubsub._reset_for_shutdown()
-    except Exception:  # noqa: BLE001
+    except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
         pass
     with _global.lock:
         if _global.client is not None and _global.mode == DRIVER_MODE:
@@ -245,7 +245,7 @@ def shutdown():
                 # events otherwise die with the process and its tasks
                 # lose their submit/queue/lease phases.
                 _global.client.flush_runtime_events()
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the events die with the process, as they would without the flush
                 pass
             try:
                 _global.client.close()
@@ -256,7 +256,7 @@ def shutdown():
         if _global.transfer is not None:
             try:
                 _global.transfer.shutdown()
-            except Exception:
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
                 pass
         _global.client = None
         _global.node = None

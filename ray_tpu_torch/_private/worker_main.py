@@ -1357,7 +1357,7 @@ def main():
                     bc.send(
                         {"type": "events_flushed", "token": msg.get("token")}
                     )
-                except Exception:  # noqa: BLE001
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the flusher waits for its token with a timeout of its own
                     pass
         elif t == "set_events_recording":
             # Cluster-wide flight-recorder toggle (gcs broadcast).

@@ -264,7 +264,7 @@ class DeploymentState:
             r.shutdown_ref = None
             try:
                 kill(r.handle)
-            except Exception:  # noqa: BLE001
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- the replica may already be dead; its STOPPING state is reaped by the health loop
                 pass
 
     def _run_health_checks(self):

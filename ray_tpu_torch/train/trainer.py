@@ -285,11 +285,11 @@ class TorchTrainer:
             for w in workers:
                 try:
                     ray_tpu_torch.kill(w)
-                except Exception:
+                except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
                     pass
             try:
                 remove_placement_group(pg)
-            except Exception:
+            except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- teardown: the peer may already be gone, and what follows frees the rest
                 pass
 
     def _prune_checkpoints(self, storage: str):

@@ -228,12 +228,13 @@ def test_port_imports_nothing_of_the_reference():
         "ray_tpu_torch.util.pubsub", "ray_tpu_torch.util.multiprocessing",
         "ray_tpu_torch.util.joblib", "ray_tpu_torch.experimental.tqdm_ray",
         "ray_tpu_torch._private.ray_perf", "ray_tpu_torch._private.native_tools",
+        "ray_tpu_torch._lint", "ray_tpu_torch._lint.__main__", "ray_tpu_torch._lint.race",
     ]
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.train, ray_tpu_torch.tune, "
             "ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms.ppo, ray_tpu_torch.convert, "
             f"{serve}, {', '.join(tooling + surface)}; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('ray_tpu', 'jax', 'flax', 'optax', 'orbax')))")
+            "('ray_tpu', 'jax', 'flax', 'optax', 'orbax', 'tools')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=DEADLINE_S, check=True,
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
