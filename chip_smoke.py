@@ -77,7 +77,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    shape (b1, 16 heads of 128, T 32768 global) against single-card
    `flash_attention` on the gathered tensors, o and every gradient; then
    the sequence-parallel llama-1b train step (seq 4, b1, T 32768, bf16
-   parameters, chunked loss, one step then RING_TIMED_STEPS timed): every loss
+   parameters, chunked loss, one step then RING_TIMED_STEPS timed; full
+   width, depth cut to RING_LAYERS of the 22 layers): every loss
    equals the same step's loss on one card from the same weights and
    ids, every rank ends with the same parameters, the losses are finite
    and fall, and K1-K3 were launched as often as the ring needs, summed
@@ -370,6 +371,9 @@ RING_RANKS, RING_SEQ, RING_HEADS, RING_D = 4, 32768, 16, 128
 # 34 s through host memory, and the whole smoke must stay well inside its
 # time limit as phases are added.
 RING_TIMED_STEPS, RING_CHUNK = 1, 2048
+# The sequence-parallel steps at full width and half of llama-1b's depth:
+# 22 layers took 35 s a step, and the smoke's total passed its 850 s aim.
+RING_LAYERS = 11
 # Each sequence-parallel loss against the same step on one card: bf16
 # activations round at other points (the ring merges per-block o in
 # float32 and rounds once; the single kernel rounds its own o), and the
@@ -504,6 +508,20 @@ FAULT_KILL_RULE = f"kill:{FAULT_KILL_POINT}.attempt0.step1=1?role=worker"
 FAULT_KILL_AFTER = SERVE_REQUESTS // 2
 FAULT_STEPS = 2
 FAULT_TIMEOUT_S = 300
+# Phase 29: a GPU actor observed through the runtime's own instruments, on
+# a runtime of its own with the dashboard up. One num_gpus=1 actor with
+# the concurrency groups OBSERVED_GROUPS, in a STRICT_PACK placement group
+# of one {"GPU": 1, "CPU": 1} bundle, streams OBSERVED_STEPS of phase 5's
+# train steps (its "compute" group) while OBSERVED_IO_CALLS calls of its
+# "io" group read its step count; a num_gpus=1 task outside the group
+# waits OBSERVED_PENDING_S and is cancelled; the actor counts its steps in
+# the user counter OBSERVED_COUNTER, which /metrics must serve.
+OBSERVED_STEPS = 3
+OBSERVED_IO_CALLS = 3
+OBSERVED_GROUPS = {"compute": 1, "io": 1}
+OBSERVED_COUNTER = "chip_smoke_observed_steps"
+OBSERVED_PENDING_S = 2.0
+OBSERVED_TIMEOUT_S = 300
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -519,6 +537,18 @@ SOURCES = {
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+#: The smoke's start and the end of each phase that has finished.
+_PHASE_CLOCK = [time.perf_counter()]
+
+
+def phase_done(label: str) -> None:
+    """Prints the seconds phase `label` took and the smoke's time so far."""
+    now = time.perf_counter()
+    print(f"phase {label}: {now - _PHASE_CLOCK[-1]:.1f} s, smoke at "
+          f"{now - _PHASE_CLOCK[0]:.1f} s", flush=True)
+    _PHASE_CLOCK.append(now)
 
 
 def max_err(a, b) -> float:
@@ -1381,7 +1411,7 @@ def phase_ring(A, card):
 
     # (b) the sequence-parallel llama-1b train steps against the same
     # steps on one card, from the same weights and ids
-    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16, num_layers=RING_LAYERS)
     ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, t))
     loss_fn = functools.partial(chunked_causal_lm_loss, chunk_size=RING_CHUNK)
     model = LlamaForCausalLM(cfg, device="cuda")
@@ -1419,7 +1449,8 @@ def phase_ring(A, card):
         print(f"seq-parallel rank {r['seq_rank']}: backend {r['backend']}, {r['device']} "
               f"({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
               f"{r['peak_memory_gb']:.2f} GB", flush=True)
-    print(f"train llama-1b seq-parallel (seq {n}, b1, T {t}, bf16, chunked loss) on {card}, "
+    print(f"train llama-1b seq-parallel ({layers} layers, seq {n}, b1, T {t}, bf16, chunked "
+          f"loss) on {card}, "
           f"{n} ranks sharing the card over gloo through host memory: losses "
           f"{losses} against single-card {single} (relative {max(loss_rel):.2e}, rtol "
           f"{RING_LOSS_RTOL}), parameters equal on every rank, step {step_ms:.1f} ms "
@@ -4351,6 +4382,312 @@ def phase_faults(card, in_process, spec=None):
     return {"launches": launches, "skipped": skipped, "readings": readings}
 
 
+class ObservedLlama:
+    """Phase 29's actor: phase 5's model, seed and batch, built as 28b's
+    task builds them, K1-K3 counted from its first step. `train_stream`
+    (the "compute" group) takes the train steps and yields each step's
+    loss as it finishes; after the first it holds until `release` (the
+    "io" group) is called, or OBSERVED_TIMEOUT_S passes, so the driver
+    reads the actor while its stream runs. `probe` (the "io" group) gives
+    the steps taken and K1's launches so far. Each step adds one to the
+    user counter OBSERVED_COUNTER."""
+
+    def __init__(self, spec):
+        import threading
+
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models.llama import CONFIGS
+        from ray_tpu_torch.ops import attention as A
+        from ray_tpu_torch.util.metrics import Counter
+
+        started = time.time()
+        t0 = time.perf_counter()
+        self.model = surface_model(spec)
+        self.optimizer = train.make_optimizer(self.model)
+        vocab = CONFIGS[spec["model"]].vocab_size
+        self.ids = torch.as_tensor(
+            np.random.RandomState(0).randint(0, vocab, (spec["batch"], spec["seq"])),
+            dtype=torch.long, device=spec["device"])
+        self.targets = torch.roll(self.ids, -1, dims=1)
+        self.steps = 0
+        self.released = threading.Event()
+        self.counter = Counter(OBSERVED_COUNTER, description="phase 29's train steps")
+        self.times = {"started": started, "build_s": time.perf_counter() - t0}
+        A.reset_launch_counts()
+
+    def train_stream(self, steps):
+        from ray_tpu_torch import train
+
+        for step in range(1, steps + 1):
+            t0 = time.perf_counter()
+            loss = float(train.train_step(self.model, self.optimizer, self.ids, self.targets))
+            self.steps = step
+            self.counter.inc(1.0)
+            yield {"step": step, "loss": loss, "step_s": time.perf_counter() - t0,
+                   "at": time.time()}
+            if step == 1:
+                self.released.wait(OBSERVED_TIMEOUT_S)
+
+    def probe(self):
+        from ray_tpu_torch.ops import attention as A
+
+        return {"steps": self.steps, "k1": A.LAUNCHES.get("flash_fwd", 0), "at": time.time()}
+
+    def release(self):
+        self.released.set()
+        return self.steps
+
+    def stats(self):
+        import os
+
+        return {"pid": os.getpid(), **self.times, **surface_worker_stats()}
+
+
+def observed_outside_task():
+    """29c's task outside the group: it must never run."""
+    return "ran"
+
+
+def phase_observed(card, in_process, spec=None):
+    """Phase 29: a GPU actor observed through the runtime's own
+    instruments, on a runtime of the phase's own under a temp root of its
+    own, with the dashboard up. A STRICT_PACK placement group of one
+    {"GPU": 1, "CPU": 1} bundle holds the card (29c): while it lives the
+    runtime shows no free GPU, and a num_gpus=1 task outside it stays
+    pending and is cancelled. In it, a num_gpus=1 ObservedLlama actor with
+    OBSERVED_GROUPS streams OBSERVED_STEPS train steps from its "compute"
+    group (29a): the first loss reaches this process before the stream
+    ends, and the losses are phase 5's first (`in_process`), bitwise.
+    While the stream holds after its first step, OBSERVED_IO_CALLS calls
+    of the "io" group answer with the steps taken (29b), and the worker's
+    stack profile names the generator (29d). After the stream, 29d reads
+    what the runtime recorded: the stream call's seven transitions and
+    six timeline phases, and /metrics with the core series, the flight
+    recorder's drop counter and the actor's counter at OBSERVED_STEPS. The
+    group's removal frees the card (29c). With a spec whose device is the
+    CPU (the rehearsal), the card checks are listed, not made. Returns
+    K1-K3's launches in the actor, the skipped checks and the readings."""
+    import shutil
+    import socket
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.events import TASK_PHASES, TASK_TRANSITIONS
+    from ray_tpu_torch._private.state import task_transitions, timeline
+    from ray_tpu_torch._private.worker import global_client
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.exceptions import TaskCancelledError
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.util.placement_group import (
+        placement_group, remove_placement_group,
+    )
+    from ray_tpu_torch.util.scheduling_strategies import PlacementGroupSchedulingStrategy
+    from ray_tpu_torch.util.state import list_workers
+
+    t_phase = time.perf_counter()
+    spec = spec or surface_spec()
+    on_card = spec["device"] == "cuda"
+    card_name = torch.cuda.get_device_name(0) if on_card else None
+    layers = CONFIGS[spec["model"]].num_layers
+    skipped = []
+
+    def card_check(ok, what):
+        if on_card:
+            check(ok, what)
+        else:
+            skipped.append(what.split(":")[0])
+
+    def io(method):
+        return method.options(concurrency_group="io").remote()
+
+    def wait_for(read, ok, what):
+        deadline = time.perf_counter() + OBSERVED_TIMEOUT_S
+        while True:
+            value = read()
+            if ok(value):
+                return value
+            check(time.perf_counter() < deadline, f"{what}: {value}")
+            time.sleep(0.25)
+
+    root = tempfile.mkdtemp(prefix="rtpt")
+    saved_root = os.environ.get("RAY_TPU_TORCH_TEMP_DIR")
+    os.environ["RAY_TPU_TORCH_TEMP_DIR"] = root
+    init_kw = {} if spec["num_cpus"] is None else {"num_cpus": spec["num_cpus"]}
+    readings = {}
+    try:
+        rt.init(**init_kw)
+        try:
+            check(rt.cluster_resources().get("GPU", 0) >= 1,
+                  "phase 29: the runtime detected no GPU")
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            url = start_dashboard(port=port)
+
+            # 29c. the placement group holds the card
+            pg = placement_group([{"GPU": 1, "CPU": 1}], strategy="STRICT_PACK")
+            check(pg.wait(timeout_seconds=OBSERVED_TIMEOUT_S),
+                  "29c: the placement group was never placed")
+            free_held = rt.available_resources().get("GPU", 0.0)
+            check(free_held == 0, f"29c: {free_held} GPU free while the group holds the card")
+            submitted = time.perf_counter()
+            actor = rt.remote(num_gpus=1, num_cpus=1, concurrency_groups=OBSERVED_GROUPS)(
+                ObservedLlama).options(
+                    scheduling_strategy=PlacementGroupSchedulingStrategy(
+                        placement_group=pg, placement_group_bundle_index=0)).remote(spec)
+            first_stats = rt.get(io(actor.stats), timeout=OBSERVED_TIMEOUT_S)
+            ready_s = time.perf_counter() - submitted
+            outside = rt.remote(num_gpus=1)(observed_outside_task).remote()
+            ran, _ = rt.wait([outside], timeout=OBSERVED_PENDING_S)
+            check(not ran, "29c: a num_gpus=1 task outside the group ran while the group "
+                           "held the card")
+            check(rt.cancel(outside), "29c: the pending task outside the group was not "
+                                      "cancelled")
+            try:
+                got = rt.get(outside, timeout=OBSERVED_TIMEOUT_S)
+                check(False, f"29c: the cancelled task returned {got!r}")
+            except TaskCancelledError:
+                pass
+
+            # 29a. the stream, and 29b. the io group while it runs
+            t0 = time.perf_counter()
+            stream = actor.train_stream.options(
+                concurrency_group="compute", num_returns="streaming").remote(OBSERVED_STEPS)
+            items = iter(stream)
+            first = rt.get(next(items), timeout=OBSERVED_TIMEOUT_S)
+            first_s = time.perf_counter() - t0
+            probes = []
+            for _ in range(OBSERVED_IO_CALLS):
+                t1 = time.perf_counter()
+                probe = rt.get(io(actor.probe), timeout=OBSERVED_TIMEOUT_S)
+                probes.append(dict(probe, ms=(time.perf_counter() - t1) * 1e3))
+            # 29d. the worker's stack while the generator runs
+            wid = next(w["worker_id"] for w in list_workers(limit=1000)
+                       if w["pid"] == first_stats["pid"])
+            t1 = time.perf_counter()
+            stack = global_client().request(
+                {"type": "worker_stacks", "worker_id": bytes.fromhex(wid)},
+                timeout=OBSERVED_TIMEOUT_S)
+            stack_ms = (time.perf_counter() - t1) * 1e3
+            check(stack.get("ok") and "train_stream" in stack.get("text", ""),
+                  f"29d: the actor worker's stack does not name the generator: "
+                  f"{str(stack)[:2000]}")
+            rt.get(io(actor.release), timeout=OBSERVED_TIMEOUT_S)
+            rest = [rt.get(ref, timeout=OBSERVED_TIMEOUT_S) for ref in items]
+            end_s = time.perf_counter() - t0
+            steps = [first] + rest
+            losses = [x["loss"] for x in steps]
+            want = in_process["losses"][:OBSERVED_STEPS]
+            check([x["step"] for x in steps] == list(range(1, OBSERVED_STEPS + 1)),
+                  f"29a: the stream yielded steps {[x['step'] for x in steps]}")
+            check(losses == want, f"29a: the streamed losses {losses} are not phase 5's "
+                                  f"first {OBSERVED_STEPS} {want} bitwise")
+            check(first_s < end_s and first["at"] < steps[-1]["at"],
+                  f"29a: the first loss came {first_s:.3f} s after the call, the stream "
+                  f"ended {end_s:.3f} s after it")
+            for i, probe in enumerate(probes):
+                check(probe["steps"] < OBSERVED_STEPS and probe["at"] < steps[-1]["at"],
+                      f"29b: io call {i} read {probe['steps']} steps at {probe['at']}, the "
+                      f"stream's last step at {steps[-1]['at']}")
+            after = rt.get(io(actor.stats), timeout=OBSERVED_TIMEOUT_S)
+            for label, seen in (("constructor", first_stats), ("stream", after)):
+                card_check(seen["card"] == card_name,
+                           f"29a card: the actor's {label} ran on {seen['card']!r}")
+            per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers,
+                        "flash_bwd_dq": layers}
+            launches = {k: after["launches"].get(k, 0) for k in per_step}
+            card_check(launches == {k: v * OBSERVED_STEPS for k, v in per_step.items()},
+                       f"29a launches: the actor launched {launches} in {OBSERVED_STEPS} "
+                       f"steps, expected {per_step} per step")
+            card_check(all(p["k1"] == 2 * layers for p in probes),
+                       f"29b launches: the io calls read K1 at {[p['k1'] for p in probes]}, "
+                       f"expected {2 * layers} after one step")
+            print(f"29a: a num_gpus=1 {spec['model']} actor with concurrency groups "
+                  f"{OBSERVED_GROUPS} in a STRICT_PACK group on {card}, ready in "
+                  f"{ready_s:.2f} s (built in {first_stats['build_s']:.2f} s; pid "
+                  f"{first_stats['pid']}, CUDA_VISIBLE_DEVICES={first_stats['visible']}); "
+                  f"its stream's first loss {first_s:.3f} s after the call, the stream's end "
+                  f"{end_s:.3f} s after it (held after step 1 until released); steps "
+                  f"{[round(x['step_s'], 4) for x in steps]} s; losses {losses} bitwise "
+                  f"phase 5's first {OBSERVED_STEPS}; launches {launches}: ok", flush=True)
+            print(f"29b: {OBSERVED_IO_CALLS} io-group calls while the compute group's stream "
+                  f"ran read steps {[p['steps'] for p in probes]} and K1 "
+                  f"{[p['k1'] for p in probes]}, in {[round(p['ms'], 2) for p in probes]} ms: "
+                  f"ok", flush=True)
+
+            # 29d. what the runtime recorded
+            tid = stream._task_id.hex()
+            seen = wait_for(lambda: [e["event"] for e in task_transitions(tid)],
+                            lambda names: set(TASK_TRANSITIONS) <= set(names),
+                            "29d: the stream call's transitions")
+            rows = [r for r in timeline() if r.get("cat") == "task_phase"
+                    and r["args"]["task_id"] == tid]
+            check([r["name"] for r in rows] == list(TASK_PHASES)
+                  and all(r["dur"] >= 0 for r in rows)
+                  # Contiguous, to a microsecond (ts and dur are in us).
+                  and all(abs(b["ts"] - (a["ts"] + a["dur"])) <= 1.0
+                          for a, b in zip(rows, rows[1:])),
+                  f"29d: the stream call's timeline rows {rows}")
+            phases_ms = {r["name"]: r["dur"] / 1e3 for r in rows}
+
+            def scrape():
+                with urllib.request.urlopen(f"{url}/metrics", timeout=30) as r:
+                    return r.read().decode()
+
+            def counted(text):
+                return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                           if line.startswith(OBSERVED_COUNTER)
+                           and line[len(OBSERVED_COUNTER)] in " {")
+
+            text = wait_for(scrape, lambda s: counted(s) >= OBSERVED_STEPS,
+                            "29d: /metrics never counted the actor's steps")
+            check(counted(text) == OBSERVED_STEPS,
+                  f"29d: /metrics counts {counted(text)} steps, expected {OBSERVED_STEPS}")
+            core = ("ray_tpu_torch_resources_total", "ray_tpu_torch_nodes_alive",
+                    "ray_tpu_torch_control_messages",
+                    "ray_tpu_torch_flight_recorder_dropped_total")
+            missing = [name for name in core if f"# TYPE {name} " not in text]
+            check(not missing, f"29d: /metrics lacks {missing}")
+            print(f"29d: the stream call's transitions {seen}; its timeline phases "
+                  f"{ {k: round(v, 3) for k, v in phases_ms.items()} } ms; the worker's "
+                  f"stack named train_stream ({stack_ms:.1f} ms); /metrics served "
+                  f"{OBSERVED_COUNTER} {counted(text):g} and {list(core)}: ok", flush=True)
+
+            # 29c. the group's removal frees the card
+            rt.kill(actor)
+            remove_placement_group(pg)
+            t1 = time.perf_counter()
+            wait_for(lambda: rt.available_resources().get("GPU", 0.0), lambda g: g >= 1,
+                     "29c: the GPU never came back after the group was removed")
+            freed_s = time.perf_counter() - t1
+            print(f"29c: the group held the card ({free_held:g} GPU free), a num_gpus=1 "
+                  f"task outside it was pending after {OBSERVED_PENDING_S} s and cancelled; "
+                  f"the GPU was free {freed_s:.2f} s after the actor's kill and the group's "
+                  f"removal: ok", flush=True)
+            readings.update(ready_s=ready_s, build_s=first_stats["build_s"], first_s=first_s,
+                            end_s=end_s, step_s=[x["step_s"] for x in steps],
+                            io_ms=[p["ms"] for p in probes], stack_ms=stack_ms,
+                            losses=losses, phases_ms=phases_ms, freed_s=freed_s)
+        finally:
+            rt.shutdown()
+    finally:
+        if saved_root is None:
+            os.environ.pop("RAY_TPU_TORCH_TEMP_DIR", None)
+        else:
+            os.environ["RAY_TPU_TORCH_TEMP_DIR"] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    readings["phase_s"] = phase_s
+    print(f"phase 29 on {card}: {phase_s:.1f} s; K1-K3 launches in its actor {launches}",
+          flush=True)
+    return {"launches": launches, "skipped": skipped, "readings": readings}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--job-driver"]:
         return job_driver()
@@ -4392,12 +4729,15 @@ def main() -> int:
     except ImportError:
         print("gymnasium is not installed: phase 22 holds the learner on batches built "
               "without an env", flush=True)
+    phase_done("1-2")
 
     # 3. attention kernels
     numbers = phase_kernels(A)
+    phase_done("3")
     # 4. grouped-matmul kernels
     numbers.update(phase_gmm(G))
     torch.cuda.empty_cache()
+    phase_done("4")
 
     # 5. Llama train: the Llama path, counted from zero
     from dataclasses import replace
@@ -4424,6 +4764,7 @@ def main() -> int:
           f"{[round(x, 4) for x in losses]}, {r['tokens_per_s']:.1f} tokens/s, "
           f"step {r['step_ms']:.1f} ms, MFU {r['mfu']:.4f} of "
           f"{H100_BF16_PEAK_FLOPS:.3g} FLOP/s; launches {launches}", flush=True)
+    phase_done("5")
 
     # 6. chunked loss
     import numpy as np
@@ -4441,67 +4782,88 @@ def main() -> int:
           flush=True)
     del model
     torch.cuda.empty_cache()
+    phase_done("6")
 
     # 7. MoE dispatch: gmm against the ragged oracle
     phase_moe_dispatch(M, card)
     torch.cuda.empty_cache()
+    phase_done("7")
 
     # 8. Mixtral train: the Mixtral path, counted from zero
     moe_launches = phase_mixtral(A, G, M, card, bench_model, H100_BF16_PEAK_FLOPS)
     torch.cuda.empty_cache()
+    phase_done("8")
 
     # 9. dispatch probe
     phase_probe(M)
     torch.cuda.empty_cache()
+    phase_done("9")
 
     # 10. attention kernels at the long-context and GPT shapes
     phase_long_kernels(A)
+    phase_done("10")
     # 11. GPT: parity on a small input, then the gpt2-large path counted from zero
     phase_gpt(A, card, bench_model, H100_BF16_PEAK_FLOPS)
     torch.cuda.empty_cache()
+    phase_done("11")
     # 12. the long-context sweep, counted from zero
     phase_longctx(A, card, H100_BF16_PEAK_FLOPS)
     torch.cuda.empty_cache()
+    phase_done("12")
     # 13. ring blocks in one process
     phase_ring_blocks(A)
+    phase_done("13")
     # 14. the ring over RING_RANKS processes on the card, counted in each rank
     phase_ring(A, card)
     torch.cuda.empty_cache()
+    phase_done("14")
     # 15. the pipeline over PIPE_STAGES processes, counted in each rank
     phase_pipeline(A, card)
     torch.cuda.empty_cache()
+    phase_done("15")
     # 16. expert parallelism over data x expert processes, counted in each rank
     phase_expert(A, card)
     torch.cuda.empty_cache()
+    phase_done("16")
     # 17. the runtime: the card detected, tensors through the object store
     phase_object_plane(card)
+    phase_done("17")
     # 18. TorchTrainer at llama-1b in a GPU worker, counted in the worker
     trainer_step_ms = phase_trainer(A, card, llama_in_process)
+    phase_done("18")
     import ray_tpu_torch as rt
 
     rt.init()
     try:
         # 19. Data -> TorchTrainer -> llama-1b, counted in the worker
         phase_data_trainer(card, llama_in_process, trainer_step_ms)
+        phase_done("19")
         # 20. collectives with CUDA tensors between two actors on the card
         phase_collectives(card)
+        phase_done("20")
         # 21. Tune: two trials of llama-1b queued on the card, counted in each worker
         phase_tune(card, llama_in_process)
+        phase_done("21")
         # 22. RLlib PPO with its learner on the card
         phase_ppo(card)
+        phase_done("22")
         # 23. Serve: a num_gpus=1 llama-1b replica, K1 counted in the replica
         serve_launches = phase_serve(card)
+        phase_done("23")
         # 24. the rest of RLlib: every other learner on the card, offline
         # data, multi-agent, DreamerV3
         phase_rllib(card)
     finally:
         rt.shutdown()
+    phase_done("24")
     # 25. a job on an autoscaled GPU node, K1-K3 counted in its task
     job_launches = phase_job(card, llama_in_process)
+    phase_done("25")
     # 26. the rest of the surface: a compiled DAG, a workflow, a thin
     # client and a pip env, each counted in its worker
     surface = phase_surface(card, llama_in_process)
     torch.cuda.empty_cache()
+    phase_done("26")
     # 27. Mixtral's other meshes over 4 processes, counted in each rank; a
     # C caller of a llama-1b actor, counted in the actor; the native
     # store and codec
@@ -4509,10 +4871,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     c_client = phase_c_client(card)
     torch.cuda.empty_cache()
+    phase_done("27")
     # 28. the runtime under faults: an actor restart and a task retry on
     # the card under a seeded chaos schedule, K1-K3 counted in the
     # workers; the lock witness in every process
     faults = phase_faults(card, llama_in_process)
+    phase_done("28")
+    # 29. a GPU actor observed through the runtime: a stream of train steps
+    # from its compute group, io calls while it runs, a placement group
+    # holding the card, and the events, timeline, /metrics and stack
+    # profile the runtime recorded; K1-K3 counted in the actor
+    observed = phase_observed(card, llama_in_process)
+    phase_done("29")
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.
@@ -4546,6 +4916,9 @@ def main() -> int:
         # 28b's retry (K1-K3).
         if name in faults["launches"]:
             kernels[-1]["fault_launches"] = faults["launches"][name]
+        # Phase 29's actor: its stream of train steps (K1-K3).
+        if name in observed["launches"]:
+            kernels[-1]["observed_launches"] = observed["launches"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

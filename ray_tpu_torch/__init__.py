@@ -53,6 +53,7 @@ _lock_witness.maybe_install()
 
 from ._private.worker import (  # noqa: F401,E402
     available_resources,
+    cancel,
     client_server_address,
     cluster_resources,
     drain_node,

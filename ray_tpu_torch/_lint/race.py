@@ -2,9 +2,10 @@
 
     python -m ray_tpu_torch._lint --race
 
-runs the object-plane, chaos, actors and lock-witness test files
-(``tests/test_torch_{object_plane,chaos,actors,lock_witness}.py``) in one
-pytest process with ``RAY_TPU_TORCH_lock_witness=1`` and a sidecar file
+runs the object-plane, chaos, actors, lock-witness and object-lifetime
+test files (``tests/test_torch_{object_plane,chaos,actors,lock_witness,
+object_lifetime}.py``) in one pytest process with
+``RAY_TPU_TORCH_lock_witness=1`` and a sidecar file
 (``RAY_TPU_TORCH_lock_witness_file``) that every process appends its
 findings to: the driver, and through the inherited environment every
 head, node daemon and worker it spawns. The run fails when pytest fails
@@ -35,6 +36,7 @@ RACE_FILES = [
     "tests/test_torch_chaos.py",
     "tests/test_torch_actors.py",
     "tests/test_torch_lock_witness.py",
+    "tests/test_torch_object_lifetime.py",
 ]
 
 

@@ -1464,9 +1464,18 @@ class CoreClient:
         # object, and the tracker knows the directory holds us as a
         # holder (put_object registers the putter) — so the eventual
         # drop sends its remove even if the add batch never went out.
+        # Marked before the advert leaves: an advert sent on a head conn
+        # that has just died is lost, and the reconnect's reconcile
+        # re-advertises only objects already marked (marked after, a
+        # reconcile between the two dropped the object for good, and a
+        # task depending on it waited at the new head forever).
         ref = ObjectRef(oid, self.worker_id.binary())
-        self.put_with_id(oid, value)
         self._tracker.mark_advertised(oid.binary())
+        try:
+            self.put_with_id(oid, value)
+        except BaseException:
+            self._tracker.forget([oid.binary()])
+            raise
         return ref
 
     def put_with_id(self, oid: ObjectID, value: Any) -> Dict[str, Any]:

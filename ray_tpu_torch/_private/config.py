@@ -169,7 +169,7 @@ _DEFAULTS: Dict[str, Any] = {
     # A/B its overhead (the obs-smoke perf test does exactly that).
     "events_enabled": True,
     # Per-process ring capacity; overflow evicts oldest and counts the
-    # drop (exported as ray_tpu_flight_recorder_dropped_total).
+    # drop (exported as ray_tpu_torch_flight_recorder_dropped_total).
     "event_buffer_size": 8192,
     # Head-side aggregator retention per job (submitting process).
     "event_retention_per_job": 50_000,

@@ -327,6 +327,18 @@ class _PendingQueue:
         for q in self.classes.values():
             yield from q
 
+    def remove_returning(self, oid: bytes) -> Optional[TaskSpec]:
+        """Takes out and returns the queued task one of whose returns is
+        `oid`; None when no queued task has it."""
+        for key, q in [(None, self.special), *self.classes.items()]:
+            for spec in q:
+                if any(r.binary() == oid for r in spec.return_object_ids()):
+                    q.remove(spec)
+                    if key is not None and not q:
+                        del self.classes[key]
+                    return spec
+        return None
+
 
 class _Unschedulable(Exception):
     """Task can never be placed (bad/removed PG); fail instead of requeue."""
@@ -978,7 +990,7 @@ class GcsServer:
             if actor.spec.placement_group_id is None:
                 _acquire(node.available, self._task_resources(actor.spec))
             while actor.pending:
-                self._route_actor_task(actor.pending.popleft())
+                self._route_actor_task(actor.pending.popleft(), requeued=True)
             self._notify_direct_waiters(actor)
             self._publish("ACTOR", aid.hex(), {"state": "ALIVE"})
             claimed_actors += 1
@@ -1118,20 +1130,36 @@ class GcsServer:
                     )
                 self._work.notify_all()
 
-    def _route_actor_task(self, spec: TaskSpec):
-        """Dispatch an actor method to its pinned worker (ordered FIFO)."""
+    def _creation_queued(self, aid: bytes) -> bool:
+        """Whether actor `aid`'s creation spec waits in the pending queue.
+        Caller holds the lock."""
+        return any(
+            s.actor_creation
+            and s.actor_id is not None
+            and s.actor_id.binary() == aid
+            for s in self._pending
+        )
+
+    def _route_actor_task(self, spec: TaskSpec, requeued: bool = False):
+        """Dispatch an actor method to its pinned worker (ordered FIFO).
+        `requeued`: the call comes from its actor's own queue, where it
+        was already recorded as QUEUED."""
         aid = spec.actor_id.binary()
         actor = self.actors.get(aid)
-        if actor is None:
-            if aid in self.named_actors.values():
-                # Name reserved but the creation spec hasn't arrived yet
-                # (get_if_exists race window); buffer until it does.
-                self._orphan_actor_tasks.setdefault(aid, []).append(spec)
-                return
+        if actor is None and aid not in self.named_actors.values():
             self._fail_task_returns(spec, None, actor_error="actor not found")
             return
-        if actor.state == A_DEAD:
+        if actor is not None and actor.state == A_DEAD:
             self._fail_task_returns(spec, None, actor_error=actor.death_reason)
+            return
+        if _events.enabled() and not requeued:
+            _events.record(
+                _events.TASK, spec.task_id.hex(), "QUEUED", {"route": "actor"}
+            )
+        if actor is None:
+            # Name reserved but the creation spec hasn't arrived yet
+            # (get_if_exists race window); buffer until it does.
+            self._orphan_actor_tasks.setdefault(aid, []).append(spec)
             return
         if actor.state in (A_PENDING, A_RESTARTING):
             actor.pending.append(spec)
@@ -1667,7 +1695,7 @@ class GcsServer:
                 node = self.nodes[w.node_id.binary()]
                 node.pool.discard(wid)  # no longer fungible
             while actor.pending:
-                self._route_actor_task(actor.pending.popleft())
+                self._route_actor_task(actor.pending.popleft(), requeued=True)
             self._notify_direct_waiters(actor)
             self._publish("ACTOR", aid.hex(), {"state": "ALIVE"})
         else:
@@ -2469,6 +2497,22 @@ class GcsServer:
         waiters, actor.direct_waiters = actor.direct_waiters, []
         for peer, req_id in waiters:
             self._answer_direct_waiter(actor, peer, req_id)
+
+    def _h_cancel_task(self, state, msg):
+        """Cancels a task still queued here, before any worker took it:
+        its returns fail with TaskCancelledError. A task already placed,
+        or not queued at the head, is left alone; the reply says which."""
+        from ..exceptions import TaskCancelledError
+
+        with self._lock:
+            spec = self._pending.remove_returning(msg["object_id"])
+            if spec is not None:
+                self._version += 1
+                self._table_versions["pending"] += 1
+                self._fail_task_returns(
+                    spec, TaskCancelledError(f"task {spec.name} was cancelled")
+                )
+        state["peer"].reply(msg, ok=True, cancelled=spec is not None)
 
     def _h_kill_actor(self, state, msg):
         with self._lock:
@@ -3489,12 +3533,7 @@ class GcsServer:
                 actor.state = A_RESTARTING
                 for m in rec["pending"]:
                     actor.pending.append(m)
-                if not any(
-                    s.actor_creation
-                    and s.actor_id is not None
-                    and s.actor_id.binary() == aid
-                    for s in self._pending
-                ):
+                if not self._creation_queued(aid):
                     self._recover_actors.add(aid)
                 # else: the OLD head had already re-queued this actor's
                 # creation (its worker died pre-crash) and the queued
@@ -4172,21 +4211,21 @@ class GcsServer:
 
                 self._straggler_gauges = {
                     "score": Gauge(
-                        "ray_tpu_node_health_score",
+                        "ray_tpu_torch_node_health_score",
                         "Per-node gray-failure health score (1 = healthy)",
                         tag_keys=("node_id",),
                     ),
                     "quarantined": Gauge(
-                        "ray_tpu_nodes_quarantined",
+                        "ray_tpu_torch_nodes_quarantined",
                         "Nodes currently quarantined by the health scorer",
                     ),
                     "hedges": Counter(
-                        "ray_tpu_hedges_total",
+                        "ray_tpu_torch_hedges_total",
                         "Hedged (speculative) task executions by outcome",
                         tag_keys=("outcome",),
                     ),
                     "transitions": Counter(
-                        "ray_tpu_quarantine_transitions_total",
+                        "ray_tpu_torch_quarantine_transitions_total",
                         "Quarantine state transitions",
                         tag_keys=("transition",),
                     ),
@@ -4511,12 +4550,7 @@ class GcsServer:
                         actor.restarts_used += 1
                     actor.epoch += 1  # fence the old incarnation
                     actor.worker_id = None
-                    if not any(
-                        s.actor_creation
-                        and s.actor_id is not None
-                        and s.actor_id.binary() == aid
-                        for s in self._pending
-                    ):
+                    if not self._creation_queued(aid):
                         self._pending.append(spec)
                     stats["actors_restarted"] += 1
             self._recover_actors.clear()
@@ -4896,13 +4930,19 @@ class GcsServer:
                         f"ever satisfy {res}"
                     )
                 return None
+        # Quarantine = drain, not fence: a sustained-bad-score node
+        # takes no NEW leases; existing work finishes or hedges away,
+        # and readmission restores it to this filter.
+        # The first demanded resource is tested first and inline: with
+        # many nodes most fail it, and every placement scans every node
+        # (with 1000 nodes `_fits` alone held a queue drain to 160
+        # tasks/s).
+        first, need = next(iter(res.items()), ("CPU", 0.0))
         candidates = [
             n
             for n in self.nodes.values()
-            # Quarantine = drain, not fence: a sustained-bad-score node
-            # takes no NEW leases; existing work finishes or hedges
-            # away, and readmission restores it to this filter.
-            if n.alive and n.schedulable and not n.quarantined
+            if n.available.get(first, 0.0) + 1e-9 >= need
+            and n.alive and n.schedulable and not n.quarantined
             and _fits(n.available, res)
         ]
         if not candidates:
@@ -5455,7 +5495,13 @@ class GcsServer:
             w.packed = {}
             for aid_b, release_always in dead_actor_ids:
                 actor = self.actors.get(aid_b)
-                if actor is not None and actor.state not in (A_DEAD, A_RESTARTING):
+                # A RESTARTING actor listed here died in its restart
+                # attempt (this worker held its re-creation): it restarts
+                # again, as when its first creation's worker dies. The
+                # reference skips it, and the actor stays RESTARTING on
+                # no worker, its calls queued forever.
+                if actor is not None and actor.state != A_DEAD:
+                    self._recover_actors.discard(aid_b)
                     released_creation = (
                         dying_task is not None and dying_task.actor_creation
                     )
@@ -5475,7 +5521,8 @@ class GcsServer:
                         actor.epoch += 1  # fence the old incarnation
                         actor.state = A_RESTARTING
                         actor.worker_id = None
-                        self._pending.append(actor.spec)
+                        if not self._creation_queued(aid_b):
+                            self._pending.append(actor.spec)
                     else:
                         actor.state = A_DEAD
                         actor.death_reason = f"actor worker died: {reason}"

@@ -7,6 +7,7 @@ subprocesses; the Node owns the session dir and shutdown.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import secrets
 import shutil
@@ -15,6 +16,22 @@ from typing import Dict, Optional
 
 from .config import temp_root
 from .gcs import GcsServer
+
+#: Longest GCS socket path kept under the session dir. AF_UNIX takes at
+#: most 107 bytes, and a caller's temp dir can be long (pytest's
+#: `tmp_path` under xdist is over 100).
+MAX_SESSION_SOCKET_PATH = 100
+
+
+def gcs_socket_path(session_dir: str) -> str:
+    """The GCS socket of a session: ``<session_dir>/gcs.sock`` when that
+    fits AF_UNIX's limit, else ``/tmp/rtpt-<hash of the session dir>.sock``.
+    The hash keeps it the same for a head restarted on the same dir."""
+    path = os.path.join(session_dir, "gcs.sock")
+    if len(path) <= MAX_SESSION_SOCKET_PATH:
+        return path
+    digest = hashlib.sha256(os.path.abspath(session_dir).encode()).hexdigest()
+    return f"/tmp/rtpt-{digest[:24]}.sock"
 
 
 def detect_num_gpus() -> int:
@@ -68,8 +85,7 @@ class Node:
         # and restores its persisted GCS state from it.
         self.session_dir = session_dir
         os.makedirs(os.path.join(self.session_dir, "logs"), exist_ok=True)
-        # AF_UNIX socket paths are length-limited (~107 bytes); keep it short.
-        self.address = os.path.join(self.session_dir, "gcs.sock")
+        self.address = gcs_socket_path(self.session_dir)
         self.authkey = authkey or secrets.token_bytes(16)
         # Node-wide C++ object-store pool (plasma equivalent); workers
         # inherit the name via the environment and attach.

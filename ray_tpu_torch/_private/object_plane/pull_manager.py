@@ -186,12 +186,12 @@ class PullManager:
 
                 self._gauges = (
                     Gauge(
-                        "ray_tpu_pull_queue_depth",
+                        "ray_tpu_torch_pull_queue_depth",
                         "queued pull requests by priority class",
                         tag_keys=("pull_class",),
                     ),
                     Gauge(
-                        "ray_tpu_pull_in_flight_bytes",
+                        "ray_tpu_torch_pull_in_flight_bytes",
                         "total bytes of admitted in-flight pulls",
                     ),
                 )

@@ -858,15 +858,38 @@ def bench_object_envelope(cfg: Dict[str, int]):
         )
         spill_refs = [ray_tpu_torch.put(spill_payload) for _ in range(n_spill)]
         gcs = _global.node.gcs
-        spilled = 0
-        for r in spill_refs:
-            entry = gcs.objects.get(r.id().binary())
-            if entry is not None and entry.status == "READY":
-                if gcs._spill_one(r.id().binary(), entry):
-                    spilled += 1
         from ray_tpu_torch._private.worker import global_client
 
         client = global_client()
+        # A put's advert reaches the directory asynchronously, and the
+        # stress thread keeps the head busy: an object the directory does
+        # not yet hold READY cannot be spilled, and dropping its only
+        # copy below would lose it. Wait for every advert first;
+        # `ready_at_put` counts those that had landed when the last put
+        # returned, `advert_wait_ms` how long the rest took.
+        def ready_entries():
+            entries = [gcs.objects.get(r.id().binary()) for r in spill_refs]
+            ready = sum(e is not None and e.status == "READY" for e in entries)
+            return entries, ready
+
+        entries, ready_at_put = ready_entries()
+        t_advert = time.monotonic()
+        client.flush_lazy()
+        while time.monotonic() < t_advert + 60:
+            entries, ready = ready_entries()
+            if ready == n_spill:
+                break
+            time.sleep(0.005)
+        advert_wait_ms = (time.monotonic() - t_advert) * 1e3
+        spilled = 0
+        for r, entry in zip(spill_refs, entries):
+            if entry is not None and entry.status == "READY":
+                if gcs._spill_one(r.id().binary(), entry):
+                    spilled += 1
+        if spilled != n_spill:
+            raise RuntimeError(
+                f"object_envelope: spilled {spilled} of {n_spill} objects"
+            )
         for r in spill_refs:
             try:
                 client.store.delete(r.id())
@@ -880,6 +903,7 @@ def bench_object_envelope(cfg: Dict[str, int]):
         row(
             "envelope_spill_backed_get_s", dt, n=n_spill,
             spilled=spilled, bytes=n_spill * int(cfg["spill_bytes"]),
+            ready_at_put=ready_at_put, advert_wait_ms=round(advert_wait_ms, 3),
         )
         ray_tpu_torch.free(spill_refs + get_refs)
         del spill_refs, get_refs

@@ -307,6 +307,17 @@ def free(refs: Sequence[ObjectRef]):
     global_client().free(list(refs))
 
 
+def cancel(object_ref: ObjectRef) -> bool:
+    """Cancels the task of `object_ref` while it still waits at the head
+    for resources: its returns then raise TaskCancelledError. Returns
+    whether it was cancelled; a task already placed runs on. The
+    reference has no cancel."""
+    reply = global_client().request(
+        {"type": "cancel_task", "object_id": object_ref.id().binary()}
+    )
+    return bool(reply.get("cancelled"))
+
+
 def kill(actor_handle, *, no_restart: bool = True):
     from ..actor import ActorHandle
 

@@ -1160,16 +1160,19 @@ class WorkerRuntime:
                     spec.task_id.binary() in self._cancelled
                 ),
             )
-        t_end = time.time() if _rec.enabled else 0.0
         if spec.num_returns == -1:
             # Failures before iteration (bad args, fetch error) must
             # still end the stream or consumers park forever.
             self._stream_results(spec, value, origin, exc=exc)
             self._executing.pop(tid_b, None)
-            return
-        self._report_done(spec, value, exc, origin)
-        self._executing.pop(tid_b, None)
-        self._cancelled.discard(tid_b)
+            # The generator ran inside _stream_results: the execution
+            # ends with the stream.
+            t_end = time.time() if _rec.enabled else 0.0
+        else:
+            t_end = time.time() if _rec.enabled else 0.0
+            self._report_done(spec, value, exc, origin)
+            self._executing.pop(tid_b, None)
+            self._cancelled.discard(tid_b)
         # t_fork truthy too: a mid-execution toggle-on must not ship a
         # half-captured span (0.0 boundaries poison the histograms).
         if _rec.enabled and t_fork:

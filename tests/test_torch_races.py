@@ -22,6 +22,23 @@
   recovery window and takes the claim, so the instance and its state
   survive: a head whose persist never records the creation's finish,
   killed under a connected driver and a node daemon.
+- A session's GCS socket lay at `<temp_dir>/session_*/gcs.sock` however
+  long the caller's temp dir was, so `init(_temp_dir=...)` with a long
+  dir failed to bind (`AF_UNIX path too long`). The port binds such a
+  session's socket under a short `/tmp/rtpt-<hash>.sock` and unlinks it
+  on shutdown.
+- An actor whose restart attempt died (the worker re-creating it was
+  killed, or its node died, before the creation finished) stayed
+  RESTARTING on no worker, its calls queued forever: the head skipped
+  RESTARTING actors among a dying worker's actors. It is found by the
+  partition soak (`ray_perf --only partition_soak --partition-smoke`),
+  whose epoch actor wedged after its restart's node was declared dead.
+  The port restarts such an actor again, from its restart budget.
+- A put marked its object advertised only after its advert left: an
+  advert sent on a head conn that had just died was lost, and a
+  reconnect whose reconcile ran between the two never re-advertised the
+  object, so a task depending on it waited at the restarted head forever
+  (the partition soak's traffic wedge). The port marks it first.
 
 Every test has a deadline after which it fails instead of hanging.
 """
@@ -411,3 +428,92 @@ def test_an_actor_alive_after_the_last_persist_survives_a_head_failover(tmp_path
         except Exception:  # noqa: BLE001
             pass
         head.stop()
+
+
+def test_a_session_under_a_long_temp_dir_binds_a_short_socket(tmp_path):
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.config import temp_root
+
+    base = os.path.join(temp_root(), f"long_{os.getpid()}_")
+    long_dir = base + "d" * (90 - len(base))
+    assert len(long_dir) == 90
+    os.makedirs(long_dir, exist_ok=True)
+    try:
+        ray_tpu_torch.init(num_cpus=1, _temp_dir=long_dir)
+        try:
+            node = worker_mod._global.node
+            address = node.address
+            assert node.session_dir.startswith(long_dir)
+            assert len(address) <= 100 and os.path.exists(address)
+            assert address.startswith("/tmp/rtpt-")
+
+            @ray_tpu_torch.remote
+            def double(x):
+                return 2 * x
+
+            assert ray_tpu_torch.get(double.remote(21), timeout=60) == 42
+        finally:
+            ray_tpu_torch.shutdown()
+        assert not os.path.exists(address)
+    finally:
+        import shutil
+
+        shutil.rmtree(long_dir, ignore_errors=True)
+
+
+def test_an_actor_whose_restart_attempt_dies_restarts_again(tmp_path):
+    attempts = tmp_path / "attempts"
+    attempts.mkdir()
+
+    @ray_tpu_torch.remote(max_restarts=2)
+    class Phoenix:
+        def __init__(self, attempts):
+            self.n = len(os.listdir(attempts))
+            with open(os.path.join(attempts, str(self.n)), "w") as f:
+                f.write(str(os.getpid()))
+            if self.n == 1:
+                time.sleep(SUBPROCESS_TIMEOUT_S)  # killed mid-creation
+
+        def incarnation(self):
+            return os.getpid(), self.n
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        actor = Phoenix.remote(str(attempts))
+        pid, n = ray_tpu_torch.get(actor.incarnation.remote(), timeout=60)
+        assert n == 0
+        os.kill(pid, signal.SIGKILL)
+        restart = attempts / "1"
+        deadline = time.monotonic() + 60
+        while not (restart.exists() and restart.read_text()):
+            assert time.monotonic() < deadline, "the actor's restart never began"
+            time.sleep(0.05)
+        os.kill(int(restart.read_text()), signal.SIGKILL)  # mid-creation
+        pid2, n2 = ray_tpu_torch.get(actor.incarnation.remote(), timeout=60)
+        assert n2 == 2 and pid2 not in (pid, int(restart.read_text()))
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_a_put_is_marked_advertised_before_its_advert_leaves():
+    from ray_tpu_torch._private.worker import global_client
+
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        client = global_client()
+        marked_at_send = []
+        advert = client._advert_async
+
+        def watched(msg):
+            marked_at_send.append(msg["object_id"] in client._tracker._advertised)
+            advert(msg)
+
+        client._advert_async = watched
+        try:
+            refs = [ray_tpu_torch.put(np.ones(n)) for n in (10, 100_000)]
+        finally:
+            del client._advert_async
+        assert marked_at_send == [True, True]
+        assert [len(ray_tpu_torch.get(r, timeout=60)) for r in refs] == [10, 100_000]
+    finally:
+        ray_tpu_torch.shutdown()
