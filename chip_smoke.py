@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (`ray_tpu_torch`) on one CUDA card.
+"""Smoke run of the PyTorch/CUDA port (`ray_tpu_torch`) on one CUDA card,
+and on four where the host has them (phase 30).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # phases 1-30
+    python3 chip_smoke.py --phase 30    # phases 1-2, 5 and 30 alone
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -304,6 +306,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    Prints the seconds of the put, the actor's start and restart (split
    into the wait for its constructor, its get, build and load) and the
    retry, and the faults injected in each worker.
+30. the layouts with one card per rank over NCCL, where the host has
+   NCCL_RANKS cards or more (on fewer, one line with the count and
+   nothing else; nothing moves to gloo, host memory or the CPU). Phases
+   1-29 are written for one card: on a host with several this process
+   sees only its first (`pin_to_one_card`), and so does every process
+   it starts before this phase; the phase's worlds and runtime see them
+   all, rank r on card r (`parallel.launch.spawn(..., backend="nccl")`).
+   (a) llama-1b sequence-parallel over seq 4 at T 32768, all 22 layers,
+   chunked loss, against the same steps on one card (RING_LOSS_RTOL),
+   with each rank's step and the time its kernels waited for the k/v
+   shifts (CUDA events around `Shift.wait`); (b) 4 pipeline stages of
+   NCCL_PIPE_LAYERS layers, NCCL_PIPE_MICRO microbatches of b1 s2048,
+   against the layers in sequence on one card as phase 15 holds them,
+   with each stage's idle share of the schedule from CUDA events around
+   its ticks; (c) phase 27a's MESH_CASES on four cards, with each rank's
+   expert all-reduce ms; (d) `TorchTrainer` of NCCL_RANKS GPU workers
+   joined over NCCL by the trainer's rendezvous, b2 s2048 of llama-1b
+   each, gradients averaged, against one card's accumulation over the
+   same global batch; (e) `shard_params` on fsdp 2 x tensor 2 (tensor
+   plan, then FSDP2), phase 5's steps against phase 5's losses, with
+   each rank's peak memory beside phase 5's. K1-K5 counted per rank.
 
 The line before last is a JSON object describing each kernel; the last
 line is `{"ok": true, "device": {...}}`.
@@ -522,6 +545,18 @@ OBSERVED_GROUPS = {"compute": 1, "io": 1}
 OBSERVED_COUNTER = "chip_smoke_observed_steps"
 OBSERVED_PENDING_S = 2.0
 OBSERVED_TIMEOUT_S = 300
+# Phase 30: the layouts with one card per rank over NCCL, on a host with
+# NCCL_RANKS cards. 30b's pipeline: NCCL_RANKS stages of NCCL_PIPE_LAYERS
+# of llama-1b's 22 layers (stages are equal, so 20), NCCL_PIPE_MICRO
+# microbatches of b1 s2048. 30d's TorchTrainer: NCCL_TRAINER_BATCH rows a
+# worker. 30a, 30b and 30d take one step and NCCL_TIMED_STEPS timed; 30c
+# takes 27a's and 30e phase 5's. Each world's deadline is NCCL_DEADLINE_S.
+NCCL_RANKS = 4
+NCCL_PIPE_LAYERS, NCCL_PIPE_MICRO = 5, 8
+NCCL_TRAINER_BATCH = 2
+NCCL_SHARDED = dict(fsdp=2, tensor=2)
+NCCL_TIMED_STEPS = 2
+NCCL_DEADLINE_S = 300
 # mixtral-small b2 s2048: 4096 tokens routed top-2 over 8 experts, hidden
 # 1024, expert MLP 3584.
 MOE_TOKENS, MOE_EXPERTS, MOE_TOPK, MOE_D, MOE_F = BATCH * SEQ, 8, 2, 1024, 3584
@@ -1359,9 +1394,45 @@ def phase_ring_blocks(A):
     torch.cuda.empty_cache()
 
 
+def check_seq_parallel(label, res, single, layers: int, n: int, steps: int):
+    """The sequence-parallel train steps of `res` (`run_llama_train` on
+    each of `n` ranks of a seq group, `layers` layers, `steps` steps with
+    the warm-up) against the same steps on one card (`single`, their
+    losses): every loss within RING_LOSS_RTOL, falling, the parameters
+    equal on every rank, and the ring's launches over the ranks. Returns
+    (losses, largest relative difference, launches, launches per step,
+    slowest rank's step ms)."""
+    from ray_tpu_torch.ops import attention as A
+
+    losses = res[0]["losses"]
+    digests = [r["param_digest"] for r in res]
+    check(all(x == digests[0] for x in digests),
+          f"{label}: ranks hold different parameters after the steps: digests {digests}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: loss not finite: {losses}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+    check(max(loss_rel) <= RING_LOSS_RTOL,
+          f"{label}: losses {losses} vs single-card {single}: relative "
+          f"{loss_rel} (rtol {RING_LOSS_RTOL})")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    launches = {name: sum(r["launches"][name] for r in res) for name in A.LAUNCHES}
+    # remat "nothing": each layer's ring forward runs twice (forward and
+    # recompute), its backward once; each pass launches n(n + 1) / 2
+    # kernels over the ranks (rank r runs r + 1 blocks).
+    blocks = n * (n + 1) // 2
+    per_step = {"flash_fwd": 2 * layers * blocks, "flash_bwd_dkv": layers * blocks,
+                "flash_bwd_dq": layers * blocks}
+    for name, k in per_step.items():
+        check(launches[name] == k * steps,
+              f"{label}: {name} launched {launches[name]} times over the ranks "
+              f"in {steps} steps, expected {k * steps}")
+    return losses, max(loss_rel), launches, per_step, max(r["step_ms"] for r in res)
+
+
 def phase_ring(A, card):
     """Ring attention and the sequence-parallel llama-1b step over
-    RING_RANKS processes sharing the card, through `parallel.launch`."""
+    RING_RANKS processes sharing the card, in one world through
+    `parallel.launch`. Returns the slowest rank's step ms and the layers
+    it ran."""
     import functools
     from dataclasses import replace
 
@@ -1369,7 +1440,7 @@ def phase_ring(A, card):
     import torch
 
     from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM, chunked_causal_lm_loss
-    from ray_tpu_torch.parallel.launch import ring_inputs, run_llama_train, run_ring, spawn
+    from ray_tpu_torch.parallel.launch import ring_inputs, run_ring_then_train, spawn
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.train import make_optimizer, timed_steps, train_step
 
@@ -1385,11 +1456,25 @@ def phase_ring(A, card):
             zip(("o", "dq", "dk", "dv"), (o, *(x.grad for x in leaves)))}
     del q, k, v, do, leaves, o
     torch.cuda.empty_cache()
+    # (b) the sequence-parallel llama-1b train steps against the same
+    # steps on one card, from the same weights and ids
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16, num_layers=RING_LAYERS)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, t))
+    loss_fn = functools.partial(chunked_causal_lm_loss, chunk_size=RING_CHUNK)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    optimizer = make_optimizer(model)
+    ids_c = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    targets_c = torch.roll(ids_c, -1, 1)
+    single, single_s = timed_steps(
+        lambda: train_step(model, optimizer, ids_c, targets_c, loss_fn), RING_TIMED_STEPS)
+    del model, optimizer, ids_c, targets_c
+    torch.cuda.empty_cache()
+    # Both in one world of RING_RANKS processes.
     t0 = time.perf_counter()
-    res = spawn(run_ring, n, spec, [dict(inputs=inputs, causal=True, dtype="bfloat16")],
-                deadline_s=300)
+    res = spawn(run_ring_then_train, n, spec, [dict(inputs=inputs, causal=True, dtype="bfloat16")],
+                cfg, ids, RING_TIMED_STEPS, loss_fn, deadline_s=900)
     seconds = time.perf_counter() - t0
-    parts = sorted((r[0] for r in res), key=lambda r: r["seq_rank"])
+    parts = sorted((r[0][0] for r in res), key=lambda r: r["seq_rank"])
     for r in parts:
         print(f"ring rank {r['seq_rank']}: backend {r['backend']}, {r['device']} "
               f"({r['card']}); launches {r['launches']}", flush=True)
@@ -1405,46 +1490,13 @@ def phase_ring(A, card):
           f"ring launches {launches}, expected {blocks} of each")
     print(f"ring attention [{n} ranks on one card, b1 h{h} T {t} (shards of {t // n}) d{d} "
           f"bf16 causal]: o, dq, dk, dv against single-card flash_attention {fmt(worst(*errs))}; "
-          f"limit rel {REL_TOL}; launches over the ranks {launches}; world of {n} "
-          f"processes in {seconds:.1f} s: ok", flush=True)
+          f"limit rel {REL_TOL}; launches over the ranks {launches}: ok", flush=True)
     del want
 
-    # (b) the sequence-parallel llama-1b train steps against the same
-    # steps on one card, from the same weights and ids
-    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16, num_layers=RING_LAYERS)
-    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, t))
-    loss_fn = functools.partial(chunked_causal_lm_loss, chunk_size=RING_CHUNK)
-    model = LlamaForCausalLM(cfg, device="cuda")
-    optimizer = make_optimizer(model)
-    ids_c = torch.as_tensor(ids, dtype=torch.long, device="cuda")
-    targets_c = torch.roll(ids_c, -1, 1)
-    single, single_s = timed_steps(
-        lambda: train_step(model, optimizer, ids_c, targets_c, loss_fn), RING_TIMED_STEPS)
-    del model, optimizer, ids_c, targets_c
-    torch.cuda.empty_cache()
-    res = spawn(run_llama_train, n, spec, cfg, ids, RING_TIMED_STEPS, loss_fn, deadline_s=600)
-    losses = res[0]["losses"]
-    digests = [r["param_digest"] for r in res]
-    check(all(x == digests[0] for x in digests),
-          f"ranks hold different parameters after the steps: digests {digests}")
-    check(all(math.isfinite(x) for x in losses), f"sequence-parallel loss not finite: {losses}")
-    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
-    check(max(loss_rel) <= RING_LOSS_RTOL,
-          f"sequence-parallel losses {losses} vs single-card {single}: relative "
-          f"{loss_rel} (rtol {RING_LOSS_RTOL})")
-    check(losses[-1] < losses[0], f"sequence-parallel loss did not fall: {losses}")
-    launches = {name: sum(r["launches"][name] for r in res) for name in A.LAUNCHES}
+    res = [r[1] for r in res]
     steps, layers = RING_TIMED_STEPS + 1, cfg.num_layers
-    # remat "nothing": each layer's ring forward runs twice (forward and
-    # recompute), its backward once; each pass launches `blocks` kernels
-    # over the ranks.
-    per_step = {"flash_fwd": 2 * layers * blocks, "flash_bwd_dkv": layers * blocks,
-                "flash_bwd_dq": layers * blocks}
-    for name, k in per_step.items():
-        check(launches[name] == k * steps,
-              f"sequence-parallel step: {name} launched {launches[name]} times over the ranks "
-              f"in {steps} steps, expected {k * steps}")
-    step_ms = max(r["step_ms"] for r in res)
+    losses, loss_rel, launches, per_step, step_ms = check_seq_parallel(
+        "sequence-parallel step", res, single, layers, n, steps)
     for r in sorted(res, key=lambda r: r["seq_rank"]):
         print(f"seq-parallel rank {r['seq_rank']}: backend {r['backend']}, {r['device']} "
               f"({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
@@ -1452,21 +1504,64 @@ def phase_ring(A, card):
     print(f"train llama-1b seq-parallel ({layers} layers, seq {n}, b1, T {t}, bf16, chunked "
           f"loss) on {card}, "
           f"{n} ranks sharing the card over gloo through host memory: losses "
-          f"{losses} against single-card {single} (relative {max(loss_rel):.2e}, rtol "
+          f"{losses} against single-card {single} (relative {loss_rel:.2e}, rtol "
           f"{RING_LOSS_RTOL}), parameters equal on every rank, step {step_ms:.1f} ms "
           f"(slowest rank; one card alone {single_s / RING_TIMED_STEPS * 1e3:.1f} ms), "
           f"{t / step_ms * 1e3:.1f} "
-          f"tokens/s, launches over the ranks {launches} ({per_step} per step): ok; not a "
-          f"measure of scaling (one card, host-staged exchange)", flush=True)
-    print("FSDP and tensor parallelism (parallel.mesh.shard_params) are not run: on one card "
+          f"tokens/s, launches over the ranks {launches} ({per_step} per step); world of "
+          f"{n} processes, the ring then the steps, in {seconds:.1f} s: ok; not a measure of "
+          f"scaling (one card, host-staged exchange)", flush=True)
+    print("FSDP and tensor parallelism (parallel.mesh.shard_params) are not run on one card: "
           "gloo has no all-gather or reduce-scatter of CUDA tensors and NCCL refuses two "
-          "ranks on a card; they run in the CPU tests over gloo", flush=True)
+          "ranks on a card; they run in the CPU tests over gloo and, with a card per rank "
+          "over NCCL, in phase 30", flush=True)
+    return {"step_ms": step_ms, "layers": layers}
 
 
 def _grad_rows(g):
     """A gradient as rows for `rel_errs`: [out, in] weights by output row
     (tiles of TILE), a vector as one row (tile 1)."""
     return (g.reshape(-1, g.shape[-1]), TILE) if g.dim() > 1 else (g.reshape(1, -1), 1)
+
+
+def check_pipeline(label, res, want, layers: int, m_count: int, steps: int, device=None):
+    """The pipeline's ranks `res` (`run_pipeline_llama`, `layers` layers a
+    stage, `m_count` microbatches, `steps` steps with the warm-up) against
+    the same layers in sequence on one card (`want`, `sequential_llama`):
+    y and every gradient (compared on `device`, where given), the losses,
+    and each rank's launches. Returns the worst normwise errors."""
+    def on(t):
+        return (t if device is None else t.to(device)).float()
+
+    errs = []
+    for r in res:
+        errs.append(assert_close(f"{label} y (stage {r['stage']}) vs sequential",
+                                 on(r["y"]), on(want["y"]), O_TOL, O_TOL, REL_TOL))
+        grads = want["grads"][r["stage"]]
+        check(set(r["grads"]) == set(grads), f"{label} stage {r['stage']}: other parameters")
+        for name, w in grads.items():
+            (got, tile), (ref, _) = _grad_rows(on(r["grads"][name])), _grad_rows(on(w))
+            errs.append(assert_close(f"{label} grad {name} (stage {r['stage']})", got, ref,
+                                     GRAD_TOL * float(ref.abs().max()), GRAD_TOL, REL_TOL,
+                                     tile=tile))
+    for r in res:
+        losses = r["losses"]
+        check(all(math.isfinite(x) for x in losses), f"{label} loss not finite: {losses}")
+        check(losses[-1] < losses[0], f"{label} loss did not fall: {losses}")
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+        check(max(loss_rel) <= RING_LOSS_RTOL,
+              f"{label} losses {losses} vs sequential {want['losses']}: relative {loss_rel} "
+              f"(rtol {RING_LOSS_RTOL})")
+        # Each rank runs its layers on the M microbatches of its own
+        # ticks only: K1 in the forward and again in remat "nothing"'s
+        # recompute inside the backward's VJP, K2 and K3 once.
+        per_step = {"flash_fwd": 2 * m_count * layers, "flash_bwd_dkv": m_count * layers,
+                    "flash_bwd_dq": m_count * layers}
+        for name, k in per_step.items():
+            check(r["launches"][name] == k * steps,
+                  f"{label} stage {r['stage']}: {name} launched {r['launches'][name]} times "
+                  f"in {steps} steps, expected {k * steps}")
+    return errs, per_step
 
 
 def phase_pipeline(A, card):
@@ -1489,35 +1584,9 @@ def phase_pipeline(A, card):
     res = sorted(spawn(run_pipeline_llama, s_count, cfg, layers, ids, TIMED_STEPS, PIPE_LR,
                        deadline_s=600), key=lambda r: r["stage"])
     seconds = time.perf_counter() - t0
-    errs = []
+    errs, per_step = check_pipeline("pipeline", res, want, layers, m_count, TIMED_STEPS + 1,
+                                    "cuda")
     for r in res:
-        errs.append(assert_close(f"pipeline y (stage {r['stage']}) vs sequential",
-                                 r["y"].float(), want["y"].float(), O_TOL, O_TOL, REL_TOL))
-        grads = want["grads"][r["stage"]]
-        check(set(r["grads"]) == set(grads), f"stage {r['stage']}: other parameters")
-        for name, w in grads.items():
-            (got, tile), (ref, _) = _grad_rows(r["grads"][name].float()), _grad_rows(w.float())
-            errs.append(assert_close(f"pipeline grad {name} (stage {r['stage']})", got, ref,
-                                     GRAD_TOL * float(ref.abs().max()), GRAD_TOL, REL_TOL,
-                                     tile=tile))
-    steps = TIMED_STEPS + 1
-    for r in res:
-        losses = r["losses"]
-        check(all(math.isfinite(x) for x in losses), f"pipeline loss not finite: {losses}")
-        check(losses[-1] < losses[0], f"pipeline loss did not fall: {losses}")
-        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
-        check(max(loss_rel) <= RING_LOSS_RTOL,
-              f"pipeline losses {losses} vs sequential {want['losses']}: relative {loss_rel} "
-              f"(rtol {RING_LOSS_RTOL})")
-        # Each rank runs its 11 layers on the M microbatches of its own
-        # ticks only: K1 in the forward and again in remat "nothing"'s
-        # recompute inside the backward's VJP, K2 and K3 once.
-        per_step = {"flash_fwd": 2 * m_count * layers, "flash_bwd_dkv": m_count * layers,
-                    "flash_bwd_dq": m_count * layers}
-        for name, k in per_step.items():
-            check(r["launches"][name] == k * steps,
-                  f"pipeline stage {r['stage']}: {name} launched {r['launches'][name]} times "
-                  f"in {steps} steps, expected {k * steps}")
         print(f"pipeline stage {r['stage']}: backend {r['backend']}, {r['device']} "
               f"({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
               f"{r['peak_memory_gb']:.2f} GB, launches {r['launches']}", flush=True)
@@ -1530,8 +1599,9 @@ def phase_pipeline(A, card):
           f"{want['losses']} (rtol {RING_LOSS_RTOL}); step {step_ms:.1f} ms (slowest rank; "
           f"one card in sequence {want['step_ms']:.1f} ms), peak memory per rank "
           f"{[round(r['peak_memory_gb'], 2) for r in res]} GB; bubble share "
-          f"(S-1)/(M+S-1) = {(s_count - 1) / (m_count + s_count - 1):.2f} (the schedule's, "
-          f"not measured); launches per rank {per_step} per step; world in {seconds:.1f} s: "
+          f"(S-1)/(M+S-1) = {(s_count - 1) / (m_count + s_count - 1):.2f} (the schedule's; "
+          f"phase 30 measures it with a card per stage); launches per rank {per_step} per "
+          f"step; world in {seconds:.1f} s: "
           f"ok; not a measure of scaling (one card, host-staged exchange)", flush=True)
 
 
@@ -1723,7 +1793,9 @@ def trainer_loop(config):
     cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
     model = LlamaForCausalLM(cfg, device="cuda")
     A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     r = bench_model(model, BATCH, SEQ, TIMED_STEPS, H100_BF16_PEAK_FLOPS)
+    r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9  # phase 30e's yardstick
     launches = dict(A.LAUNCHES)
     for step, loss in enumerate(r["losses"]):
         train.report({"step": step, "loss": loss})
@@ -3815,11 +3887,15 @@ def mesh_spec(**over):
     return spec
 
 
-def phase_meshes(card, spec=None):
+def phase_meshes(card, spec=None, backend="gloo", label="27a", single=None, ranks=None):
     """Phase 27a: each of MESH_CASES over 4 ranks in one world, against
     the same steps on one process with the same dispatch. Returns the
     launches over the ranks by case label; on the CPU (the rehearsal)
-    the launch checks are left to the caller."""
+    the launch checks are left to the caller. Phase 30c runs it with
+    `backend` "nccl" (a card per rank) and its `label`; `single` holds
+    the one-process steps by (dispatch, dtype), filled where missing, so
+    that 30c reuses 27a's; `ranks`, where given, takes each case's
+    per-rank launches and expert all-reduce ms."""
     import numpy as np
     import torch
     from dataclasses import replace
@@ -3840,8 +3916,8 @@ def phase_meshes(card, spec=None):
 
     ids = np.random.RandomState(0).randint(0, CONFIGS[spec["model"]].vocab_size,
                                            (spec["batch"], spec["seq"]))
-    single = {}
-    for key in sorted({(d, dt or "") for _, _, d, dt in MESH_CASES}):
+    single = {} if single is None else single
+    for key in sorted({(d, dt or "") for _, _, d, dt in MESH_CASES} - set(single)):
         model = MixtralForCausalLM(case_cfg(*key), device=device)
         optimizer = make_optimizer(model)
         ids_d = torch.as_tensor(ids, dtype=torch.long, device=device)
@@ -3854,63 +3930,74 @@ def phase_meshes(card, spec=None):
     cases = [(MeshSpec(**axes), case_cfg(d, dt)) for _, axes, d, dt in MESH_CASES]
     t0 = time.perf_counter()
     res = spawn(run_mixtral_trains, 4, cases, ids, steps,
-                *(("cpu",) if device == "cpu" else ()), deadline_s=600)
+                *(("cpu",) if device == "cpu" else ()), deadline_s=600, backend=backend)
     seconds = time.perf_counter() - t0
+    nccl = backend == "nccl"
+    where = ("4 ranks on 4 cards over NCCL" if nccl
+             else "4 ranks sharing the card over gloo through host memory")
     out = {}
+    phase = label
     for i, (label, axes, dispatch, dtype) in enumerate(MESH_CASES):
         rs = [r[i] for r in res]
         cfg = cases[i][1]
         want, want_s = single[(dispatch, dtype or "")]
         losses = rs[0]["losses"]
-        check(all(r["losses"] == losses for r in rs), f"27a {label}: ranks report different losses")
-        check(all(math.isfinite(x) for x in losses), f"27a {label}: loss not finite: {losses}")
+        check(all(r["losses"] == losses for r in rs),
+              f"{phase} {label}: ranks report different losses")
+        check(all(math.isfinite(x) for x in losses), f"{phase} {label}: loss not finite: {losses}")
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
         check(max(rel) <= RING_LOSS_RTOL,
-              f"27a {label}: losses {losses} vs one process's {want}: relative {rel} "
+              f"{phase} {label}: losses {losses} vs one process's {want}: relative {rel} "
               f"(rtol {RING_LOSS_RTOL})")
-        check(losses[-1] < losses[0], f"27a {label}: loss did not fall: {losses}")
+        check(losses[-1] < losses[0], f"{phase} {label}: loss did not fall: {losses}")
         for r in rs:
             same = [p["param_digest"] for p in rs if (p["expert_rank"], p["tensor_rank"])
                     == (r["expert_rank"], r["tensor_rank"])]
             check(all(d == r["param_digest"] for d in same),
-                  f"27a {label}: ranks holding the same part of the model differ: {same}")
+                  f"{phase} {label}: ranks holding the same part of the model differ: {same}")
             check(r["replicated_digest"] == rs[0]["replicated_digest"],
-                  f"27a {label}: the unsplit parameters differ between ranks")
+                  f"{phase} {label}: the unsplit parameters differ between ranks")
         launches = {name: sum(r["launches"].get(name, 0) + r["gmm_launches"].get(name, 0)
                               for r in rs)
                     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "gmm", "tgmm")}
         expected = mesh_launches(axes, cfg.num_layers, dispatch, steps + 1)
         if device == "cuda":
             check(launches == expected,
-                  f"27a {label}: launches over the ranks {launches}, expected {expected}")
+                  f"{phase} {label}: launches over the ranks {launches}, expected {expected}")
             if dispatch == "gmm":
                 for r in rs:
                     check(r["gmm_launches"]["gmm"] > 0 and r["gmm_launches"]["tgmm"] > 0,
-                          f"27a {label}: a rank launched no K4 or K5: {r['gmm_launches']}")
+                          f"{phase} {label}: a rank launched no K4 or K5: {r['gmm_launches']}")
         out[label] = launches
-        for r in sorted(rs, key=lambda r: (r["data_rank"], r["seq_rank"], r["expert_rank"],
-                                           r["tensor_rank"])):
+        ordered = sorted(rs, key=lambda r: (r["data_rank"], r["seq_rank"], r["expert_rank"],
+                                            r["tensor_rank"]))
+        reduce_ms = [r["spans"].get("moe_all_reduce", {}).get("ms", 0.0) for r in ordered]
+        if ranks is not None:
+            ranks[label] = {"launches": [{**r["launches"], **r["gmm_launches"]} for r in ordered],
+                            "moe_all_reduce_ms": reduce_ms,
+                            "step_ms": [r["step_ms"] for r in ordered]}
+        for r, ms in zip(ordered, reduce_ms):
             peak = r["peak_memory_gb"]
-            print(f"27a {label}: rank data {r['data_rank']} seq {r['seq_rank']} expert "
+            print(f"{phase} {label}: rank data {r['data_rank']} seq {r['seq_rank']} expert "
                   f"{r['expert_rank']} tensor {r['tensor_rank']}: backend {r['backend']}, "
-                  f"{r['device']} ({r['card']}), step {r['step_ms']:.1f} ms, peak memory "
-                  f"{'n/a' if peak is None else f'{peak:.2f} GB'} (host-staged)", flush=True)
+                  f"{r['device']} ({r['card']}), step {r['step_ms']:.1f} ms, expert all-reduces "
+                  f"{ms:.2f} ms of the last step, peak memory "
+                  f"{'n/a' if peak is None else f'{peak:.2f} GB'}"
+                  f"{'' if nccl else ' (host-staged)'}", flush=True)
         axes_s = " x ".join(f"{a} {n}" for a, n in axes.items())
-        print(f"27a {spec['model']} on {axes_s} ({dispatch}, b{spec['batch']} s{spec['seq']}, "
+        print(f"{phase} {spec['model']} on {axes_s} ({dispatch}, b{spec['batch']} s{spec['seq']}, "
               f"{dtype or spec['param_dtype']} parameters, {dtype or spec['dtype']} compute, "
-              f"remat dots) on {card}, 4 ranks sharing the card over gloo through host memory: "
+              f"remat dots) on {card}, {where}: "
               f"losses {losses} against one process's in the same dtypes "
               f"{want} (relative {max(rel):.2e}, rtol {RING_LOSS_RTOL}), equal parts, step "
               f"{max(r['step_ms'] for r in rs):.1f} ms (slowest rank; one process "
               f"{want_s / steps * 1e3:.1f} ms), launches over the ranks {launches} (expected "
-              f"{expected}): ok; not a measure of scaling (one card, host-staged exchange)",
+              f"{expected}): ok"
+              f"{'' if nccl else '; not a measure of scaling (one card, host-staged exchange)'}",
               flush=True)
-    print(f"27a: world of 4 ranks, {len(MESH_CASES)} meshes, in {seconds:.1f} s; the tensor "
-          "axis runs here because its exchange is all-reduces only (the MoE layer's "
-          "copy_to_group / reduce_from_group, the attention's DTensor plan), which gloo "
-          "carries through host memory; it runs in float32 on the mesh and on one card "
-          "because in bf16 a router near-tie, not the split, decides the 1e-3 comparison",
-          flush=True)
+    print(f"{phase}: world of 4 ranks, {len(MESH_CASES)} meshes, in {seconds:.1f} s; the tensor "
+          "axis runs in float32 on the mesh and on one card because in bf16 a router "
+          "near-tie, not the split, decides the 1e-3 comparison", flush=True)
     return out
 
 
@@ -4688,11 +4775,362 @@ def phase_observed(card, in_process, spec=None):
     return {"launches": launches, "skipped": skipped, "readings": readings}
 
 
+def pin_to_one_card():
+    """Phases 1-29 are written for one card. On a host with several, this
+    process, and every process it starts before phase 30, sees only the
+    first (CUDA_VISIBLE_DEVICES, set before CUDA starts here). Returns
+    the cards a process started here would otherwise see, and
+    CUDA_VISIBLE_DEVICES as it was (None when unset), which phase 30
+    restores for its own processes."""
+    from ray_tpu_torch.parallel.launch import visible_cards
+
+    cards, before = visible_cards(), os.environ.get("CUDA_VISIBLE_DEVICES")
+    if cards > 1:
+        os.environ["CUDA_VISIBLE_DEVICES"] = before.split(",")[0] if before else "0"
+    return cards, before
+
+
+class all_cards:
+    """Within the block, processes started here see every card the host
+    gave this run (`pin_to_one_card`'s `before`); this process keeps its
+    one."""
+
+    def __init__(self, before):
+        self.before = before
+
+    def __enter__(self):
+        self.pinned = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if self.before is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = self.before
+
+    def __exit__(self, *exc):
+        if self.pinned is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = self.pinned
+
+
+def _per_rank(res):
+    """Each rank's K1-K5 launches, in rank order."""
+    return [{name: r["launches"].get(name, 0) for name in SOURCES} for r in res]
+
+
+def nccl_launches(nccl, name):
+    """Kernel `name`'s launches per rank in each sub-phase of phase 30
+    (30c's by mesh) from what `phase_nccl` returns; None where phase 30
+    did not run."""
+    if nccl is None:
+        return None
+    return {sub: ({label: [x[name] for x in per] for label, per in ranks.items()}
+                  if isinstance(ranks, dict) else [x[name] for x in ranks])
+            for sub, ranks in nccl.items()}
+
+
+def _on_own_cards(label, res, n):
+    """Every rank ran over NCCL on a card of its own."""
+    devices = [r["device"] for r in res]
+    check(all(r["backend"] == "nccl" for r in res),
+          f"{label}: backends {[r['backend'] for r in res]}")
+    check(len(set(devices)) == n, f"{label}: ranks on {devices}, not a card each")
+
+
+def phase_nccl_ring(A, card, ring_host):
+    """30a: llama-1b sequence-parallel over NCCL_RANKS cards, all 22
+    layers, against the same steps on one card; `ring_host` is phase
+    14's step (None where it did not run)."""
+    import functools
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM, chunked_causal_lm_loss
+    from ray_tpu_torch.parallel.launch import run_llama_train, spawn
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import make_optimizer, timed_steps, train_step
+
+    n, t = NCCL_RANKS, RING_SEQ
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, t))
+    loss_fn = functools.partial(chunked_causal_lm_loss, chunk_size=RING_CHUNK)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    optimizer = make_optimizer(model)
+    ids_c = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    targets_c = torch.roll(ids_c, -1, 1)
+    single, single_s = timed_steps(
+        lambda: train_step(model, optimizer, ids_c, targets_c, loss_fn), NCCL_TIMED_STEPS)
+    single_ms = single_s / NCCL_TIMED_STEPS * 1e3
+    del model, optimizer, ids_c, targets_c
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sorted(spawn(run_llama_train, n, MeshSpec(seq=n), cfg, ids, NCCL_TIMED_STEPS, loss_fn,
+                       deadline_s=NCCL_DEADLINE_S, backend="nccl"), key=lambda r: r["seq_rank"])
+    seconds = time.perf_counter() - t0
+    _on_own_cards("30a", res, n)
+    losses, loss_rel, launches, per_step, step_ms = check_seq_parallel(
+        "30a", res, single, cfg.num_layers, n, NCCL_TIMED_STEPS + 1)
+    for r in res:
+        wait = r["spans"].get("shift_wait", {"count": 0, "ms": 0.0})
+        print(f"30a seq rank {r['seq_rank']}: {r['device']} ({r['card']}), backend "
+              f"{r['backend']}, step {r['step_ms']:.1f} ms, kernels stood {wait['ms']:.2f} ms "
+              f"for {wait['count']} shifts of the last step ({wait['ms'] / r['step_ms']:.2%} "
+              f"of the mean step), peak memory {r['peak_memory_gb']:.2f} GB, launches "
+              f"{r['launches']}", flush=True)
+    hidden = max(r["spans"].get("shift_wait", {}).get("ms", 0.0) / r["step_ms"] for r in res)
+    host = ("phase 14 not run" if ring_host is None else
+            f"phase 14's {ring_host['step_ms']:.1f} ms host-staged on one card at "
+            f"{ring_host['layers']} layers")
+    print(f"30a train llama-1b seq-parallel ({cfg.num_layers} layers, seq {n}, b1, T {t}, bf16, "
+          f"chunked loss) on {n} cards over NCCL ({card} each): losses {losses} against one "
+          f"card's {single} (relative {loss_rel:.2e}, rtol {RING_LOSS_RTOL}), parameters equal "
+          f"on every rank, step {step_ms:.1f} ms (slowest rank) against {single_ms:.1f} ms on "
+          f"one card and {host}; the k/v and gradient shifts stall the kernels "
+          f"{hidden:.2%} of a step at most (CUDA events around Shift.wait); launches over the "
+          f"ranks {launches} ({per_step} per step); world in {seconds:.1f} s: ok", flush=True)
+    return _per_rank(res)
+
+
+def phase_nccl_pipeline(card):
+    """30b: llama-1b as NCCL_RANKS pipeline stages, a card each, against
+    the same layers in sequence on one card; each stage's idle share."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.parallel.launch import run_pipeline_llama, sequential_llama, spawn
+
+    s_count, layers, m_count = NCCL_RANKS, NCCL_PIPE_LAYERS, NCCL_PIPE_MICRO
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (m_count, 1, SEQ))
+    want = sequential_llama(cfg, s_count, layers, ids, NCCL_TIMED_STEPS, PIPE_LR,
+                            device="cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sorted(spawn(run_pipeline_llama, s_count, cfg, layers, ids, NCCL_TIMED_STEPS, PIPE_LR,
+                       deadline_s=NCCL_DEADLINE_S, backend="nccl"), key=lambda r: r["stage"])
+    seconds = time.perf_counter() - t0
+    _on_own_cards("30b", res, s_count)
+    errs, per_step = check_pipeline("30b", res, want, layers, m_count, NCCL_TIMED_STEPS + 1,
+                                    "cuda")
+    idle = []
+    for r in res:
+        spans = r["spans"]
+        idle.append(1.0 - spans["stage"]["ms"] / spans["pipeline"]["ms"])
+        print(f"30b stage {r['stage']}: {r['device']} ({r['card']}), backend {r['backend']}, "
+              f"step {r['step_ms']:.1f} ms, schedules {spans['pipeline']['ms']:.1f} ms of which "
+              f"its {spans['stage']['count']} ticks computed {spans['stage']['ms']:.1f} ms: idle "
+              f"{idle[-1]:.3f}; peak memory {r['peak_memory_gb']:.2f} GB, launches "
+              f"{r['launches']}", flush=True)
+    step_ms = max(r["step_ms"] for r in res)
+    print(f"30b pipeline llama-1b ({s_count * layers} of 22 layers as {s_count} stages of "
+          f"{layers}, {m_count} microbatches of b1 s{SEQ}, bf16, SGD {PIPE_LR} on mean(y^2)) on "
+          f"{s_count} cards over NCCL ({card} each): y and {sum(len(g) for g in want['grads'])} "
+          f"grads against the layers in sequence on one card {fmt(worst(*errs))}, limit rel "
+          f"{REL_TOL}; losses {res[0]['losses']} against {want['losses']} (rtol "
+          f"{RING_LOSS_RTOL}); step {step_ms:.1f} ms (slowest stage) against {want['step_ms']:.1f} "
+          f"ms in sequence on one card; measured idle share per stage "
+          f"{[round(x, 3) for x in idle]} (the schedule's (S-1)/(M+S-1) = "
+          f"{(s_count - 1) / (m_count + s_count - 1):.3f}); launches per rank {per_step} per "
+          f"step; world in {seconds:.1f} s: ok", flush=True)
+    return _per_rank(res)
+
+
+def phase_nccl_trainer(card):
+    """30d: TorchTrainer of NCCL_RANKS GPU workers over NCCL, llama-1b
+    data-parallel, against one card's accumulation over the same global
+    batch."""
+    import shutil
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.parallel.launch import accumulated_llama, data_parallel_loop
+
+    n, b = NCCL_RANKS, NCCL_TRAINER_BATCH
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (n * b, SEQ))
+    want = accumulated_llama(cfg, ids, b, NCCL_TIMED_STEPS, device="cuda")
+    torch.cuda.empty_cache()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_nccl_trainer_")
+    rt.init()
+    try:
+        gpus = rt.cluster_resources().get("GPU")
+        check(gpus == n, f"30d: the runtime detected {gpus} GPUs, expected {n}")
+        t0 = time.perf_counter()
+        result = train.TorchTrainer(
+            data_parallel_loop,
+            train_loop_config={"cfg": cfg, "ids": ids, "steps": NCCL_TIMED_STEPS},
+            scaling_config=train.ScalingConfig(num_workers=n, use_gpu=True,
+                                               use_torch_distributed=True),
+            run_config=train.RunConfig(storage_path=os.path.join(scratch, "results")),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    check(result.error is None, f"30d: TorchTrainer failed: {result.error}")
+    res = sorted(result.metrics["ranks"], key=lambda r: r["rank"])
+    check(len(res) == n, f"30d: {len(res)} workers reported")
+    check(all(r["backend"] == "nccl" for r in res), f"30d: backends {[r['backend'] for r in res]}")
+    visible = [r["visible"] for r in res]
+    check(len(set(visible)) == n and all(v and "," not in v for v in visible),
+          f"30d: the workers see CUDA_VISIBLE_DEVICES {visible}, not a card each")
+    losses = res[0]["losses"]
+    check(all(r["losses"] == losses for r in res), "30d: ranks report different losses")
+    check(all(r["param_digest"] == res[0]["param_digest"] for r in res),
+          "30d: ranks hold different parameters after the steps")
+    rel = [abs(a - c) / abs(c) for a, c in zip(losses, want["losses"])]
+    check(max(rel) <= TRAINER_LOSS_RTOL,
+          f"30d: losses {losses} vs one card's accumulation {want['losses']}: relative {rel}")
+    check(losses[-1] < losses[0], f"30d: loss did not fall: {losses}")
+    steps, layers = NCCL_TIMED_STEPS + 1, cfg.num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    for r in res:
+        for name, k in per_step.items():
+            check(r["launches"][name] == k * steps,
+                  f"30d rank {r['rank']}: {name} launched {r['launches'][name]} times in "
+                  f"{steps} steps, expected {k * steps}")
+        reduce = r["spans"].get("grad_all_reduce", {"ms": 0.0})
+        print(f"30d worker {r['rank']}: CUDA_VISIBLE_DEVICES={r['visible']} ({r['card']}), "
+              f"backend {r['backend']}, step {r['step_ms']:.1f} ms, gradient all-reduce "
+              f"{reduce['ms']:.2f} ms of the last step, peak memory {r['peak_memory_gb']:.2f} GB, "
+              f"launches {r['launches']}", flush=True)
+    print(f"30d TorchTrainer(ScalingConfig(num_workers={n}, use_gpu=True, "
+          f"use_torch_distributed=True)) llama-1b b{b} s{SEQ} a worker, bf16, over NCCL "
+          f"({card} each): losses {losses} against one card accumulating the global batch of "
+          f"{n * b} {want['losses']} (relative {max(rel):.2e}, rtol {TRAINER_LOSS_RTOL}), "
+          f"parameters equal on every worker, step {max(r['step_ms'] for r in res):.1f} ms "
+          f"(slowest worker) against {want['step_ms']:.1f} ms on one card for {n} times the "
+          f"rows; launches per worker {per_step} per step; fit() {fit_s:.1f} s: ok", flush=True)
+    return _per_rank(res)
+
+
+def phase_nccl_sharded(card, in_process):
+    """30e: llama-1b placed by shard_params on fsdp 2 x tensor 2, a card
+    per rank, taking phase 5's steps against phase 5's losses."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models.llama import CONFIGS
+    from ray_tpu_torch.parallel.launch import run_sharded_train, spawn
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    spec = MeshSpec(**NCCL_SHARDED)
+    cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (BATCH, SEQ))  # phase 5's
+    t0 = time.perf_counter()
+    res = sorted(spawn(run_sharded_train, spec.num_devices, spec, cfg, ids, TIMED_STEPS,
+                       deadline_s=NCCL_DEADLINE_S, backend="nccl"),
+                 key=lambda r: (r["fsdp_rank"], r["tensor_rank"]))
+    seconds = time.perf_counter() - t0
+    _on_own_cards("30e", res, spec.num_devices)
+    losses = res[0]["losses"]
+    check(all(r["losses"] == losses for r in res), "30e: ranks report different losses")
+    check(all(math.isfinite(x) for x in losses), f"30e: loss not finite: {losses}")
+    rel = [abs(a - c) / abs(c) for a, c in zip(losses, in_process["losses"])]
+    check(max(rel) <= RING_LOSS_RTOL,
+          f"30e: losses {losses} vs phase 5's {in_process['losses']}: relative {rel}")
+    check(losses[-1] < losses[0], f"30e: loss did not fall: {losses}")
+    steps, layers = TIMED_STEPS + 1, cfg.num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    for r in res:
+        for name, k in per_step.items():
+            check(r["launches"][name] == k * steps,
+                  f"30e rank fsdp {r['fsdp_rank']} tensor {r['tensor_rank']}: {name} launched "
+                  f"{r['launches'][name]} times in {steps} steps, expected {k * steps}")
+        print(f"30e rank fsdp {r['fsdp_rank']} tensor {r['tensor_rank']}: {r['device']} "
+              f"({r['card']}), backend {r['backend']}, step {r['step_ms']:.1f} ms, peak memory "
+              f"{r['peak_memory_gb']:.2f} GB against phase 5's "
+              f"{in_process['peak_memory_gb']:.2f} GB on one card", flush=True)
+    print(f"30e train llama-1b placed by shard_params on fsdp {NCCL_SHARDED['fsdp']} x tensor "
+          f"{NCCL_SHARDED['tensor']} (tensor plan, then FSDP2; b{BATCH} s{SEQ}, bf16, AdamW) on "
+          f"{spec.num_devices} cards over NCCL ({card} each): losses {losses} against phase 5's "
+          f"{in_process['losses']} (relative {max(rel):.2e}, rtol {RING_LOSS_RTOL}), step "
+          f"{max(r['step_ms'] for r in res):.1f} ms (slowest rank) against phase 5's "
+          f"{in_process['step_ms']:.1f} ms, peak memory per rank "
+          f"{[round(r['peak_memory_gb'], 2) for r in res]} GB against "
+          f"{in_process['peak_memory_gb']:.2f} GB; launches per rank {per_step} per step; world "
+          f"in {seconds:.1f} s: ok", flush=True)
+    return _per_rank(res)
+
+
+def phase_nccl(A, card, cards, before, in_process, ring_host, mesh_single):
+    """Phase 30: the layouts with one card per rank over NCCL (30a-30e),
+    where the host gave this run NCCL_RANKS cards or more (`cards`);
+    on fewer, one line and nothing else. Returns each sub-phase's K1-K5
+    launches per rank, or None."""
+    if cards < NCCL_RANKS:
+        print(f"phase 30: the layouts with one card per rank over NCCL need {NCCL_RANKS} cards; "
+              f"this host has {cards}, so none runs (nothing falls back to gloo, host memory "
+              f"or the CPU)", flush=True)
+        return None
+    import torch
+
+    launches = {}
+    with all_cards(before):
+        launches["30a"] = phase_nccl_ring(A, card, ring_host)
+        torch.cuda.empty_cache()
+        launches["30b"] = phase_nccl_pipeline(card)
+        torch.cuda.empty_cache()
+        ranks = {}
+        phase_meshes(card, backend="nccl", label="30c", single=mesh_single, ranks=ranks)
+        torch.cuda.empty_cache()
+        for label, r in ranks.items():
+            if dict((c[0], c[2]) for c in MESH_CASES)[label] == "gmm":
+                check(all(x["gmm"] > 0 and x["tgmm"] > 0 for x in r["launches"]),
+                      f"30c {label}: a rank launched no K4 or K5: {r['launches']}")
+        launches["30c"] = {label: [{name: x.get(name, 0) for name in SOURCES}
+                                   for x in r["launches"]] for label, r in ranks.items()}
+        launches["30d"] = phase_nccl_trainer(card)
+        torch.cuda.empty_cache()
+        launches["30e"] = phase_nccl_sharded(card, in_process)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase30_alone(A, card, cards, before) -> int:
+    """`chip_smoke.py --phase 30`: phase 5's steps (30e's yardstick), then
+    phase 30 alone; prints its launches per rank as the last line."""
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS, bench_model
+    from ray_tpu_torch.models.llama import CONFIGS, LlamaForCausalLM
+
+    model = LlamaForCausalLM(replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16),
+                             device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    r = bench_model(model, BATCH, SEQ, TIMED_STEPS, H100_BF16_PEAK_FLOPS)
+    r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 5 (30e's yardstick): losses {r['losses']}, step {r['step_ms']:.1f} ms, peak "
+          f"memory {r['peak_memory_gb']:.2f} GB", flush=True)
+    phase_done("5")
+    nccl = phase_nccl(A, card, cards, before, r, None, {})
+    phase_done("30")
+    print(json.dumps({"nccl_launches": nccl}), flush=True)
+    return 0 if nccl is not None else 1
+
+
 def main() -> int:
     if sys.argv[1:] == ["--job-driver"]:
         return job_driver()
     if sys.argv[1:2] == ["--client-driver"]:
         return client_driver(*sys.argv[2:])
+    # Before anything here starts CUDA: phases 1-29 see one card.
+    cards, before = pin_to_one_card()
     import torch
 
     if not torch.cuda.is_available():
@@ -4722,6 +5160,8 @@ def main() -> int:
     libs = _build.build()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     report_build(_build)
+    if sys.argv[1:] == ["--phase", "30"]:
+        return phase30_alone(A, card, cards, before)
     try:
         import gymnasium
 
@@ -4745,7 +5185,9 @@ def main() -> int:
     cfg = replace(CONFIGS["llama-1b"], param_dtype=torch.bfloat16)
     model = LlamaForCausalLM(cfg, device="cuda")
     A.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     r = bench_model(model, BATCH, SEQ, TIMED_STEPS, H100_BF16_PEAK_FLOPS)
+    r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9  # phase 30e's yardstick
     launches = dict(A.LAUNCHES)
     llama_in_process = r
     losses = r["losses"]
@@ -4814,7 +5256,7 @@ def main() -> int:
     phase_ring_blocks(A)
     phase_done("13")
     # 14. the ring over RING_RANKS processes on the card, counted in each rank
-    phase_ring(A, card)
+    ring_host = phase_ring(A, card)
     torch.cuda.empty_cache()
     phase_done("14")
     # 15. the pipeline over PIPE_STAGES processes, counted in each rank
@@ -4867,7 +5309,8 @@ def main() -> int:
     # 27. Mixtral's other meshes over 4 processes, counted in each rank; a
     # C caller of a llama-1b actor, counted in the actor; the native
     # store and codec
-    mesh_launches_by_case = phase_meshes(card)
+    mesh_single = {}  # the one-card steps of each case, which 30c reuses
+    mesh_launches_by_case = phase_meshes(card, single=mesh_single)
     torch.cuda.empty_cache()
     c_client = phase_c_client(card)
     torch.cuda.empty_cache()
@@ -4883,6 +5326,11 @@ def main() -> int:
     # profile the runtime recorded; K1-K3 counted in the actor
     observed = phase_observed(card, llama_in_process)
     phase_done("29")
+    # 30. the layouts with one card per rank over NCCL: the ring, the
+    # pipeline, Mixtral's meshes, TorchTrainer and shard_params, K1-K5
+    # counted per rank; on a host with fewer than NCCL_RANKS cards, one line
+    nccl = phase_nccl(A, card, cards, before, llama_in_process, ring_host, mesh_single)
+    phase_done("30")
 
     # Each kernel's launches on its own path: K1-K3 on the Llama path, K4
     # and K5 on the Mixtral path.
@@ -4919,6 +5367,7 @@ def main() -> int:
         # Phase 29's actor: its stream of train steps (K1-K3).
         if name in observed["launches"]:
             kernels[-1]["observed_launches"] = observed["launches"][name]
+        kernels[-1]["nccl_launches"] = nccl_launches(nccl, name)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

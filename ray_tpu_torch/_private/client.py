@@ -983,13 +983,19 @@ class CoreClient:
 
     def _send_lease_return(self, worker_id: bytes, raylet: bool) -> None:
         if raylet:
-            rconn = self._raylet_conn()
-            if rconn is not None:
+            # Over the connection that holds the lease, whether or not
+            # this process still asks the raylet for leases: looked up
+            # through $RAY_TPU_TORCH_LOCAL_RAYLET, a return made after the
+            # variable was dropped was lost, and the raylet kept the
+            # worker leased and its CPU taken from the head's view. A
+            # closed connection gave its leases back as it closed.
+            with self._lease_lock:
+                rconn = getattr(self, "_raylet_peer", None)
+            if rconn is not None and not rconn.closed:
                 try:
                     rconn.send(
                         {"type": "return_lease", "worker_id": worker_id}
                     )
-                    return
                 except ConnectionLost:
                     pass
             return

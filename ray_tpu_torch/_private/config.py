@@ -224,6 +224,23 @@ def temp_root() -> str:
         tempfile.gettempdir(), "ray_tpu_torch")
 
 
+def worker_socket(worker_id_hex: str) -> str:
+    """The AF_UNIX path of a worker's direct-call listener. In /tmp, not
+    the temp root: such a path is limited to about 107 bytes, and the
+    name (the full id) is unique per worker. The worker unlinks it on a
+    clean exit; the head (for the workers it forks) or the node daemon
+    (for its own) unlinks it once a killed worker's process is gone."""
+    return f"/tmp/rtpt-w-{worker_id_hex}.sock"
+
+
+def unlink_worker_socket(path: str) -> None:
+    """Removes a dead worker's socket, if it is still there."""
+    try:
+        os.unlink(path)
+    except FileNotFoundError:
+        pass
+
+
 def session_file() -> str:
     """The file a standalone head (``python -m ray_tpu_torch start
     --head``) writes its address and key to, and ``init(address="auto")``

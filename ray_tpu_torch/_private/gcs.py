@@ -50,7 +50,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from . import chaos as _chaos
 from . import events as _events
 from .accelerators import GPUAcceleratorManager
-from .config import RayConfig
+from .config import RayConfig, unlink_worker_socket
 from .object_plane import directory as _objdir
 from .ids import ActorID, NodeID, ObjectID, PlacementGroupID, WorkerID
 from .object_store import ObjectStore
@@ -5540,7 +5540,9 @@ class GcsServer:
                         self._notify_direct_waiters(actor)
             self._work.notify_all()
         if w.proc is not None:
-            threading.Thread(target=_reap, args=(w.proc,), daemon=True).start()
+            threading.Thread(
+                target=_reap, args=(w.proc, w.direct_addr), daemon=True
+            ).start()
 
     # --------------------------------------------------------------- shutdown
 
@@ -5673,9 +5675,13 @@ def sort_oom_victims(victims: List["WorkerHandle"]) -> List["WorkerHandle"]:
     )
 
 
-def _reap(proc: subprocess.Popen):
+def _reap(proc: subprocess.Popen, direct_addr: str = ""):
+    """Waits for a dead worker this head forked (killing it after 5 s),
+    then removes its direct-call socket, which a killed worker leaves."""
     try:
         proc.wait(timeout=5)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
+    if direct_addr.startswith("/"):
+        unlink_worker_socket(direct_addr)

@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 from . import chaos as _chaos
 from . import events as _events
 from .accelerators import GPUAcceleratorManager
-from .config import RayConfig, temp_root
+from .config import RayConfig, temp_root, unlink_worker_socket, worker_socket
 from .ids import WorkerID
 from .object_store import ObjectStore
 from .object_transfer import ObjectTransferServer
@@ -55,6 +55,7 @@ class NodeDaemon:
         self.resources = resources
         self.label = label
         self._workers: Dict[bytes, subprocess.Popen] = {}
+        self._sockets_removed: set = set()  # their sockets swept (_sweep_worker_sockets)
         self._lock = threading.Lock()
         self._shutdown = threading.Event()
         self._stopped = threading.Event()  # set once shutdown() has finished
@@ -575,6 +576,19 @@ class NodeDaemon:
                 _events.OBJECT, self.node_id, "SHM_SWEEP", swept
             )
 
+    def _sweep_worker_sockets(self):
+        """Removes the direct-call socket of each worker of this daemon
+        whose process is gone: a SIGKILLed worker cannot unlink its own.
+        Each is removed once; the worker's record stays (its GPU slots
+        are freed by the same liveness test)."""
+        with self._lock:
+            gone = [wid for wid, proc in self._workers.items()
+                    if wid not in self._sockets_removed
+                    and proc is not None and proc.poll() is not None]
+            self._sockets_removed.update(gone)
+        for wid in gone:
+            unlink_worker_socket(worker_socket(wid.hex()))
+
     def _heartbeat_loop(self):
         interval = RayConfig.health_check_period_ms / 1000.0
         while not self._shutdown.wait(interval):
@@ -583,6 +597,7 @@ class NodeDaemon:
             # timer (gcs health loop), never on a clean disconnect.
             _chaos.kill_point("raylet.heartbeat")
             self._sweep_pool_clients()
+            self._sweep_worker_sockets()
             try:
                 msg = {
                     "type": "node_heartbeat",

@@ -1441,9 +1441,9 @@ def main():
 
     # Full hex: a truncated id is NOT unique for counter-suffixed ids
     # (ids.fast_unique_bytes shares its first 8 bytes process-wide).
-    # In /tmp, not the temp root: an AF_UNIX path is limited to ~107
-    # bytes, and the name is unique per worker.
-    direct_addr = f"/tmp/rtpt-w-{worker_id.hex()}.sock"
+    from .config import worker_socket
+
+    direct_addr = worker_socket(worker_id.hex())
     try:
         os.unlink(direct_addr)
     except FileNotFoundError:

@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from . import ring
+from .timing import span
 
 
 def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
@@ -46,8 +47,9 @@ def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
 
 def _sum(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
     t = t.contiguous().clone()
-    for group in groups:
-        all_reduce_sum_(t, group)
+    with span("moe_all_reduce"):
+        for group in groups:
+            all_reduce_sum_(t, group)
     return t
 
 

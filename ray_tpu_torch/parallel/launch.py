@@ -11,19 +11,25 @@ collective; the whole world runs under a deadline, after which, or as
 soon as one rank fails, every process is killed and `spawn` raises.
 Results come back through `torch.save` files, so they may hold tensors.
 gloo lets several ranks share one card (`parallel.ring` stages CUDA
-tensors through host memory); NCCL would refuse that.
+tensors through host memory); NCCL would refuse that, so over NCCL rank r
+runs on card r, and `spawn` raises before starting anything where the
+host has fewer cards than ranks.
 
 The drivers below are what the ranks run, for the tests and for
 `chip_smoke.py`: the ring on random inputs (`run_ring`), the
 sequence-parallel Llama's logits, loss and gradients (`run_llama_grads`)
-and its train steps (`run_llama_train`), the step of `shard_params` on
-data x fsdp x seq x tensor (`run_sharded_grads`), the pipeline of the
-reference's tanh stages (`run_pipeline`) and of a Llama's decoder layers
-(`run_pipeline_llama`, with `sequential_llama` its one-process oracle),
-and the Mixtral on a mesh: its gradients (`run_mixtral_grads`, and
-`run_mixtral_meshes` for several meshes in one world) and train steps
-(`run_mixtral_train`, and `run_mixtral_trains` for several). They
-import the port only.
+and its train steps (`run_llama_train`; `run_ring_then_train` runs both
+in one world), the step of `shard_params` on
+data x fsdp x seq x tensor (`run_sharded_grads`) and its train steps
+(`run_sharded_train`), the pipeline of the reference's tanh stages
+(`run_pipeline`) and of a Llama's decoder layers (`run_pipeline_llama`,
+with `sequential_llama` its one-process oracle), and the Mixtral on a
+mesh: its gradients (`run_mixtral_grads`, and `run_mixtral_meshes` for
+several meshes in one world) and train steps (`run_mixtral_train`, and
+`run_mixtral_trains` for several). `data_parallel_loop` is a
+`TorchTrainer` worker's loop over the trainer's own process group, with
+`accumulated_llama` its one-process oracle. The train drivers return
+the last step's `timing` spans. They import the port only.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch.distributed as dist
 
 from .._device import DeviceLike, resolve_device
 from ..train import LossFn, lm_loss, make_optimizer, timed_steps
+from . import timing
 from .mesh import MeshSpec
 from .step import batch_slices, forward_backward, shard_batch, train_step
 
@@ -51,13 +58,22 @@ POLL_S = 0.05
 PG_TIMEOUT_S = 60
 
 
-def _worker(rank, world_size, root, backend, fn, args):
+def _worker(rank, world_size, root, backend):
     torch.set_num_threads(1)
     out = Path(root) / f"rank{rank}"
     try:
+        fn, args = torch.load(Path(root) / "call", weights_only=False)
+        card = {}
+        if backend == "nccl":
+            # Rank r's card is set before the group forms, and the group
+            # is bound to it: NCCL then builds the world's communicator
+            # at once, on every rank together, instead of at a first
+            # collective that only some ranks reach.
+            torch.cuda.set_device(rank)
+            card["device_id"] = torch.device("cuda", rank)
         dist.init_process_group(
             backend, store=dist.FileStore(str(Path(root) / "store"), world_size),
-            rank=rank, world_size=world_size, timeout=timedelta(seconds=PG_TIMEOUT_S))
+            rank=rank, world_size=world_size, timeout=timedelta(seconds=PG_TIMEOUT_S), **card)
         try:
             result = fn(rank, world_size, *args)
         finally:
@@ -75,11 +91,21 @@ def spawn(fn: Callable, world_size: int, *args, deadline_s: float = 120.0,
     process group (`backend`: gloo, or NCCL with one card per rank);
     returns the results in rank order. `fn` and `args` must pickle (`fn` a
     module-level function). Raises if a rank fails or the world outlives
-    `deadline_s`, after killing every process."""
+    `deadline_s`, after killing every process. With NCCL, raises before
+    starting any process where the host has fewer cards than ranks
+    (`visible_cards`): rank r runs on card r, never on a shared one."""
+    if backend == "nccl" and visible_cards() < world_size:
+        raise ValueError(f"spawn over NCCL runs one rank per card: {world_size} ranks need "
+                         f"{world_size} cards, and a process started here sees "
+                         f"{visible_cards()}")
     ctx = multiprocessing.get_context("spawn")
     root = tempfile.mkdtemp(prefix="ray_tpu_torch_world_")
-    procs = [ctx.Process(target=_worker, daemon=True,
-                         args=(r, world_size, root, backend, fn, args))
+    # The call goes to the ranks through a file, not the pipe that starts
+    # each process: a pipe holds 64 KiB, and the write of larger
+    # arguments (a long sequence's ids) blocked until that rank had
+    # imported torch and read them, so the ranks started one by one.
+    torch.save((fn, args), Path(root) / "call")
+    procs = [ctx.Process(target=_worker, daemon=True, args=(r, world_size, root, backend))
              for r in range(world_size)]
     try:
         for p in procs:
@@ -113,6 +139,16 @@ def spawn(fn: Callable, world_size: int, *args, deadline_s: float = 120.0,
                 p.kill()
                 p.join(10)
         shutil.rmtree(root, ignore_errors=True)
+
+
+def visible_cards() -> int:
+    """The cards a process started now would see: the host's, narrowed by
+    CUDA_VISIBLE_DEVICES, counted without CUDA (`GPUAcceleratorManager`),
+    so that a caller pinned to fewer cards than the host has (as
+    `chip_smoke.py` pins its own process) still counts its ranks' cards."""
+    from .._private.accelerators.gpu import GPUAcceleratorManager
+
+    return GPUAcceleratorManager.get_current_node_num_accelerators()
 
 
 # ------------------------------------------------------------ drivers
@@ -237,7 +273,8 @@ def param_digest(model: torch.nn.Module,
 def _train(model, mesh, ids: np.ndarray, steps: int, loss_fn: LossFn,
            device: torch.device) -> Dict[str, Any]:
     """`step.train_step` of `model` on this rank's block of `ids`, AdamW
-    of `train.make_optimizer`: one step, then `steps` timed ones."""
+    of `train.make_optimizer`: one step, then `steps` timed ones. Its
+    `spans` are the last step's (`timing`)."""
     from ..ops import attention as A
 
     ids_l, targets_l = _local_batch(ids, mesh, device)
@@ -246,19 +283,24 @@ def _train(model, mesh, ids: np.ndarray, steps: int, loss_fn: LossFn,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     A.reset_launch_counts()
-    losses, seconds = timed_steps(
-        lambda: train_step(model, optimizer, ids_l, targets_l, mesh, loss_fn), steps)
+    with timing.recording(device) as spans:
+        def step():
+            spans.reset()
+            return train_step(model, optimizer, ids_l, targets_l, mesh, loss_fn)
+
+        losses, seconds = timed_steps(step, steps)
+        last = spans.totals()
     return {"losses": losses, "step_ms": seconds / steps * 1e3, "launches": dict(A.LAUNCHES),
-            "param_digest": param_digest(model),
+            "param_digest": param_digest(model), "spans": last,
             "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
             **_where(device)}
 
 
 def run_llama_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
-                    loss_fn: Optional[LossFn] = None,
-                    device: DeviceLike = None) -> Dict[str, Any]:
+                    loss_fn: Optional[LossFn] = None, device: DeviceLike = None,
+                    weights=None) -> Dict[str, Any]:
     """The sequence-parallel Llama train step as a user runs it: the
-    weights of seed 0, this rank's block of `ids` [B, T] (targets rolled
+    weights of seed 0 (or `weights`), this rank's block of `ids` [B, T] (targets rolled
     globally), AdamW of `train.make_optimizer`, `loss_fn` (default
     `train.lm_loss`); one step, then `steps` timed ones
     (`train.timed_steps`). Returns the global losses, the timed steps'
@@ -267,8 +309,18 @@ def run_llama_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, step
     where it ran."""
     device = _rank_device(device)
     mesh = spec.build(device.type)
-    out = _train(_llama(cfg, mesh, None, device), mesh, ids, steps, loss_fn or lm_loss, device)
+    out = _train(_llama(cfg, mesh, weights, device), mesh, ids, steps, loss_fn or lm_loss,
+                 device)
     return {**out, "seq_rank": mesh["seq"].get_local_rank()}
+
+
+def run_ring_then_train(rank, world_size, spec: MeshSpec, cases: Sequence[Dict[str, Any]],
+                        cfg, ids: np.ndarray, steps: int, loss_fn: Optional[LossFn] = None,
+                        device: DeviceLike = None) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
+    """`run_ring` of `cases`, then `run_llama_train`, in one world: what
+    each returns."""
+    return (run_ring(rank, world_size, spec, cases, device),
+            run_llama_train(rank, world_size, spec, cfg, ids, steps, loss_fn, device))
 
 
 def run_sharded_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.ndarray,
@@ -286,6 +338,76 @@ def run_sharded_grads(rank, world_size, spec: MeshSpec, cfg, weights, ids: np.nd
     loss = forward_backward(model, ids_l, targets_l, mesh=mesh)
     return {"loss": float(loss),
             "grads": {n: p.grad.full_tensor().cpu() for n, p in model.named_parameters()}}
+
+
+def run_sharded_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
+                      weights=None, device: DeviceLike = None) -> Dict[str, Any]:
+    """The train step of the Llama placed by `shard_params` (tensor
+    parallelism, then FSDP2) as a user runs it: the weights of seed 0 (or
+    `weights`), this rank's block of `ids`, AdamW of
+    `train.make_optimizer`; one step, then `steps` timed ones. Returns what
+    `run_llama_train` does, with the mesh coordinates of the rank."""
+    from .mesh import shard_params
+
+    device = _rank_device(device)
+    mesh = spec.build(device.type)
+    model = shard_params(_llama(cfg, mesh, weights, device), mesh)
+    out = _train(model, mesh, ids, steps, lm_loss, device)
+    return {**out, "fsdp_rank": mesh["fsdp"].get_local_rank(),
+            "tensor_rank": mesh["tensor"].get_local_rank()}
+
+
+# ------------------------------------------------------------ under TorchTrainer
+
+
+def data_parallel_loop(config: Dict[str, Any]) -> None:
+    """The loop a worker of `TorchTrainer(scaling_config=ScalingConfig(
+    num_workers=n, use_torch_distributed=True))` runs: the Llama of
+    `config["cfg"]` (seed 0, or `config["weights"]`) data-parallel over
+    the trainer's process group (`MeshSpec(data=n)`), rank r training on
+    rows [r B/n, (r + 1) B/n) of the global batch `config["ids"]` [B, T],
+    its gradients averaged over the group (`step.train_step`). One step,
+    then `config["steps"]` timed ones; reports what `run_llama_train`
+    returns, with the rank and the worker's CUDA_VISIBLE_DEVICES, for
+    every rank (`ranks`, gathered over the group: the trainer keeps rank
+    0's reports). `config["device"]`: None for the worker's card, "cpu"
+    for the CPU."""
+    from .. import train
+
+    device = resolve_device(config.get("device"))
+    mesh = MeshSpec(data=dist.get_world_size()).build(device.type)
+    out = _train(_llama(config["cfg"], None, config.get("weights"), device), mesh,
+                 config["ids"], config["steps"], lm_loss, device)
+    ranks: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {**out, "rank": dist.get_rank(),
+                                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+    train.report({"ranks": ranks})
+
+
+def accumulated_llama(cfg, ids: np.ndarray, micro: int, steps: int, weights=None,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """`data_parallel_loop`'s oracle in one process: the same global batch
+    `ids` [B, T] as B / `micro` microbatches of `micro` rows, whose mean
+    loss's gradients accumulate before each AdamW update; one step, then
+    `steps` timed ones. Returns the losses (each the global batch's mean)
+    and the timed steps' mean ms."""
+    from ..train import forward_backward as one_backward
+    from ..train import train_step as one_step
+
+    device = resolve_device(device)
+    model = _llama(cfg, None, weights, device)
+    optimizer = make_optimizer(model)
+    gids = torch.as_tensor(ids, dtype=torch.long, device=device)
+    targets = torch.roll(gids, -1, 1)
+    parts = gids.shape[0] // micro
+
+    def accumulate(model, ids, targets, loss_fn):
+        return sum(one_backward(model, i, t, lambda m, a, b: loss_fn(m, a, b) / parts)
+                   for i, t in zip(ids.split(micro), targets.split(micro)))
+
+    losses, seconds = timed_steps(
+        lambda: one_step(model, optimizer, gids, targets, lm_loss, accumulate), steps)
+    return {"losses": losses, "step_ms": seconds / steps * 1e3}
 
 
 # ------------------------------------------------------------ pipeline
@@ -342,9 +464,9 @@ def run_pipeline(rank, world_size, cases: Sequence[Dict[str, Any]],
 
 
 def llama_stages(cfg, n_stages: int, layers_per_stage: int, ids: np.ndarray,
-                 device: torch.device):
-    """The seed-0 Llama of `n_stages * layers_per_stage` decoder layers cut
-    into stages: (the stages, ModuleLists of `layers_per_stage` layers in
+                 device: torch.device, weights=None):
+    """The seed-0 Llama (or `weights`) of `n_stages * layers_per_stage`
+    decoder layers cut into stages: (the stages, ModuleLists of `layers_per_stage` layers in
     order; x, the embedding of `ids` [M, mb, T]; the stage function, which
     runs a stage's layers through `models.llama.run_layer` at positions
     0..T-1)."""
@@ -354,6 +476,8 @@ def llama_stages(cfg, n_stages: int, layers_per_stage: int, ids: np.ndarray,
 
     cfg = replace(cfg, num_layers=n_stages * layers_per_stage)
     model = LlamaForCausalLM(cfg, device=device)
+    if weights is not None:
+        model.load_state_dict(weights)
     tids = torch.as_tensor(ids, dtype=torch.long, device=device)
     with torch.no_grad():
         x = model.embed_tokens(tids)
@@ -369,14 +493,17 @@ def llama_stages(cfg, n_stages: int, layers_per_stage: int, ids: np.ndarray,
     return stages, x, stage_fn
 
 
-def _sgd_steps(forward: Callable[[], torch.Tensor], modules, steps: int, lr: float):
+def _sgd_steps(forward: Callable[[], torch.Tensor], modules, steps: int, lr: float,
+               spans: Optional[timing.Spans] = None):
     """One SGD step of mean(y^2), y = forward(), then `steps` timed ones;
     returns (the first step's y and each module's gradients, on the CPU;
-    every loss; the timed seconds)."""
+    every loss; the timed seconds). `spans` keep the last step's."""
     optimizer = torch.optim.SGD([p for m in modules for p in m.parameters()], lr=lr)
     first: Dict[str, Any] = {}
 
     def step():
+        if spans is not None:
+            spans.reset()
         optimizer.zero_grad(set_to_none=True)
         y = forward()
         loss = y.float().pow(2).mean()
@@ -408,22 +535,24 @@ def sequential_llama(cfg, n_stages: int, layers_per_stage: int, ids: np.ndarray,
 
 
 def run_pipeline_llama(rank, world_size, cfg, layers_per_stage: int, ids: np.ndarray,
-                       steps: int, lr: float, device: DeviceLike = None) -> Dict[str, Any]:
+                       steps: int, lr: float, device: DeviceLike = None,
+                       weights=None) -> Dict[str, Any]:
     """A Llama's decoder layers as a pipeline of `world_size` stages:
     stage s holds layers [s L/S, (s+1) L/S) of the seed-0 model
     (`llama_stages`), ids [M, mb, T] are embedded by that model and go in
     as M microbatches. One SGD step (rate `lr`) of mean(y^2), then
     `steps` timed ones.
     Returns the first step's y and this stage's gradients, every loss, the
-    timed steps' mean ms, the kernels' launches over all steps, the peak
-    memory and where it ran."""
+    timed steps' mean ms, the kernels' launches over all steps, the last
+    step's spans (`timing`: the schedules and the stage's ticks within
+    them), the peak memory and where it ran."""
     from ..ops import attention as A
     from .pipeline import pipelined
 
     device = _rank_device(device)
     mesh = pipe_mesh(world_size, device.type)
     s = mesh.get_local_rank("pipe")
-    stages, x, stage_fn = llama_stages(cfg, world_size, layers_per_stage, ids, device)
+    stages, x, stage_fn = llama_stages(cfg, world_size, layers_per_stage, ids, device, weights)
     stage = stages[s]
     del stages
     apply = pipelined(stage_fn, mesh=mesh, n_microbatches=x.shape[0])
@@ -432,9 +561,11 @@ def run_pipeline_llama(rank, world_size, cfg, layers_per_stage: int, ids: np.nda
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     A.reset_launch_counts()
-    first, losses, seconds = _sgd_steps(lambda: apply(stage, x), [stage], steps, lr)
+    with timing.recording(device) as spans:
+        first, losses, seconds = _sgd_steps(lambda: apply(stage, x), [stage], steps, lr, spans)
+        last = spans.totals()
     return {"stage": s, "y": first["y"], "grads": first["grads"][0], "losses": losses,
-            "step_ms": seconds / steps * 1e3, "launches": dict(A.LAUNCHES),
+            "step_ms": seconds / steps * 1e3, "launches": dict(A.LAUNCHES), "spans": last,
             "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None,
             **_where(device)}
 
@@ -497,12 +628,12 @@ def run_mixtral_meshes(rank, world_size, cases: Sequence[Tuple[MeshSpec, Any]], 
 
 
 def _mixtral_train(spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
-                   device: torch.device) -> Dict[str, Any]:
+                   device: torch.device, weights=None) -> Dict[str, Any]:
     from ..models.mixtral import moe_lm_loss, split_parts
     from ..ops import gmm as G
 
     mesh = spec.build(device.type)
-    model = _mixtral(cfg, mesh, None, device)
+    model = _mixtral(cfg, mesh, weights, device)
     split = split_parts(model)
     G.reset_launch_counts()
     out = _train(model, mesh, ids, steps, moe_lm_loss, device)
@@ -521,14 +652,14 @@ def run_mixtral_train(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, st
 
 
 def run_mixtral_trains(rank, world_size, cases: Sequence[Tuple[MeshSpec, Any]],
-                       ids: np.ndarray, steps: int,
-                       device: DeviceLike = None) -> List[Dict[str, Any]]:
+                       ids: np.ndarray, steps: int, device: DeviceLike = None,
+                       weights=None) -> List[Dict[str, Any]]:
     """`run_mixtral_train` for each (mesh spec, config) of `cases` in turn,
     in one world, the card's cache emptied between them."""
     device = _rank_device(device)
     out = []
     for spec, cfg in cases:
-        out.append(_mixtral_train(spec, cfg, ids, steps, device))
+        out.append(_mixtral_train(spec, cfg, ids, steps, device, weights))
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out

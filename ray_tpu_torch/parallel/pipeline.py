@@ -55,6 +55,7 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from .collectives import all_reduce_sum_
 from .ring import start_shift
+from .timing import span
 
 
 def stack_stage_params(per_stage: Sequence[Any]):
@@ -103,23 +104,24 @@ class _Pipeline(torch.autograd.Function):
         out = torch.zeros_like(x)
         zeros = torch.zeros_like(x[0])
         received = zeros
-        for t in range(ticks):
-            m = t - s
-            if 0 <= m < m_count:
-                inp = (x[m] if s == 0 else received).detach().requires_grad_(need_dx)
-                with torch.set_grad_enabled(not remat):
-                    y = stage_fn(params, inp)
-                if y.shape != zeros.shape or y.dtype != zeros.dtype:
-                    raise ValueError(f"a pipeline stage must keep the microbatch's shape and "
-                                     f"dtype {tuple(zeros.shape)} {zeros.dtype}, got "
-                                     f"{tuple(y.shape)} {y.dtype}")
-                saved[t] = (inp, None if remat else y)
-                send = y.detach()
-                if s == n - 1:
-                    out[m] = send
-            else:
-                send = zeros
-            received = start_shift([send], group).wait()[0]
+        with span("pipeline"):
+            for t in range(ticks):
+                m = t - s
+                if 0 <= m < m_count:
+                    inp = (x[m] if s == 0 else received).detach().requires_grad_(need_dx)
+                    with span("stage"), torch.set_grad_enabled(not remat):
+                        y = stage_fn(params, inp)
+                    if y.shape != zeros.shape or y.dtype != zeros.dtype:
+                        raise ValueError(f"a pipeline stage must keep the microbatch's shape and "
+                                         f"dtype {tuple(zeros.shape)} {zeros.dtype}, got "
+                                         f"{tuple(y.shape)} {y.dtype}")
+                    saved[t] = (inp, None if remat else y)
+                    send = y.detach()
+                    if s == n - 1:
+                        out[m] = send
+                else:
+                    send = zeros
+                received = start_shift([send], group).wait()[0]
         ctx.sched, ctx.params, ctx.live, ctx.saved = sched, params, live, saved
         ctx.x_like = zeros
         return all_reduce_sum_(out, group)
@@ -135,35 +137,37 @@ class _Pipeline(torch.autograd.Function):
         dx = torch.zeros_like(dout) if want_dx else None
         zeros = ctx.x_like
         received = zeros
-        for t in reversed(range(ticks)):
-            m = t - s
-            send = zeros
-            if 0 <= m < m_count:
-                # The gradient of this tick's output: from the loss at the
-                # last stage, else what the right neighbour's input got.
-                dy = dout[m] if s == n - 1 else received
-                inp, y = ctx.saved.pop(t)
-                if y is None:
-                    with torch.enable_grad():
-                        y = stage_fn(ctx.params, inp)
-                wrt = [p for p in params if p.requires_grad]
-                if inp.requires_grad:
-                    wrt.append(inp)
-                got = iter(torch.autograd.grad(y, wrt, dy, allow_unused=True))
-                for i, p in enumerate(params):
-                    if p.requires_grad:
-                        g = next(got)
-                        if g is not None:
-                            grads[i] = g if grads[i] is None else grads[i] + g
-                if inp.requires_grad:
-                    dinp = next(got)
-                    if dinp is not None:
-                        if s > 0:
-                            send = dinp
-                        elif want_dx:
-                            dx[m] = dinp
-            if t > 0:
-                received = start_shift([send], group, reverse=True).wait()[0]
+        with span("pipeline"):
+            for t in reversed(range(ticks)):
+                m = t - s
+                send = zeros
+                if 0 <= m < m_count:
+                    # The gradient of this tick's output: from the loss at the
+                    # last stage, else what the right neighbour's input got.
+                    dy = dout[m] if s == n - 1 else received
+                    inp, y = ctx.saved.pop(t)
+                    wrt = [p for p in params if p.requires_grad]
+                    if inp.requires_grad:
+                        wrt.append(inp)
+                    with span("stage"):
+                        if y is None:
+                            with torch.enable_grad():
+                                y = stage_fn(ctx.params, inp)
+                        got = iter(torch.autograd.grad(y, wrt, dy, allow_unused=True))
+                    for i, p in enumerate(params):
+                        if p.requires_grad:
+                            g = next(got)
+                            if g is not None:
+                                grads[i] = g if grads[i] is None else grads[i] + g
+                    if inp.requires_grad:
+                        dinp = next(got)
+                        if dinp is not None:
+                            if s > 0:
+                                send = dinp
+                            elif want_dx:
+                                dx[m] = dinp
+                if t > 0:
+                    received = start_shift([send], group, reverse=True).wait()[0]
         if want_dx:
             all_reduce_sum_(dx, group)
         return (None, None, None, dx, *grads)

@@ -29,6 +29,8 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
+from .timing import span
+
 
 def host_staged(group, t: torch.Tensor) -> bool:
     """Whether `t` must go through host memory to be sent over `group`:
@@ -47,8 +49,9 @@ class Shift:
     def wait(self) -> List[torch.Tensor]:
         if self._recvs is None:
             return self._tensors
-        for work in self._works:
-            work.wait()
+        with span("shift_wait"):
+            for work in self._works:
+                work.wait()
         return [buf.to(t.device, non_blocking=True) if stage else buf
                 for t, buf, stage in zip(self._tensors, self._recvs, self._staged)]
 

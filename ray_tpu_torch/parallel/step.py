@@ -32,6 +32,7 @@ from torch.distributed.tensor import DTensor
 from .. import train
 from ..train import LossFn, lm_loss
 from .collectives import all_reduce_sum_
+from .timing import span
 
 BATCH_AXES = ("data", "fsdp")
 
@@ -67,11 +68,12 @@ def shard_batch(ids: torch.Tensor, targets: torch.Tensor,
 def _reduce(t: torch.Tensor, mesh, batch_axes: Tuple[str, ...] = BATCH_AXES) -> torch.Tensor:
     """Sum over "seq", mean over `batch_axes` ("data" and "fsdp"), in
     place."""
-    all_reduce_sum_(t, mesh.get_group("seq"))
-    for axis in batch_axes:
-        n = mesh[axis].size()
-        if n > 1:
-            all_reduce_sum_(t, mesh.get_group(axis)).div_(n)
+    with span("grad_all_reduce"):
+        all_reduce_sum_(t, mesh.get_group("seq"))
+        for axis in batch_axes:
+            n = mesh[axis].size()
+            if n > 1:
+                all_reduce_sum_(t, mesh.get_group(axis)).div_(n)
     return t
 
 

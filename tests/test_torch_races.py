@@ -39,6 +39,17 @@
   reconnect whose reconcile ran between the two never re-advertised the
   object, so a task depending on it waited at the restarted head forever
   (the partition soak's traffic wedge). The port marks it first.
+- A raylet lease was returned over a connection looked up through
+  `$RAY_TPU_TORCH_LOCAL_RAYLET` at return time: a process that had
+  dropped the variable since (as the local-dispatch test's head-routed
+  burst does, in a worker that still held warm raylet leases) lost the
+  return, the raylet kept the worker leased, the head saw its CPU taken,
+  and a head-routed task on that node never ran. The port returns a
+  lease over the connection that holds it.
+- A SIGKILLed worker left its direct-call socket `/tmp/rtpt-w-<id>.sock`
+  behind (only a clean exit unlinks it). The head, for the workers it
+  forks, and the node daemon, for its own, now remove it once the
+  worker's process is gone.
 
 Every test has a deadline after which it fails instead of hanging.
 """
@@ -517,3 +528,74 @@ def test_a_put_is_marked_advertised_before_its_advert_leaves():
         assert [len(ray_tpu_torch.get(r, timeout=60)) for r in refs] == [10, 100_000]
     finally:
         ray_tpu_torch.shutdown()
+
+
+@ray_tpu_torch.remote
+def _worker_of_this_task():
+    return os.getpid(), os.environ["RAY_TPU_TORCH_WORKER_ID"]
+
+
+@pytest.mark.parametrize("where", ["head", "node daemon"])
+def test_a_killed_workers_socket_is_removed_once_its_process_is_gone(where):
+    from ray_tpu_torch.cluster_utils import DaemonCluster
+
+    if where == "head":
+        ray_tpu_torch.init(num_cpus=1)
+        cluster = None
+    else:
+        cluster = DaemonCluster(head_node_args={"num_cpus": 0, "tcp_port": 0})
+        cluster.add_node(num_cpus=1)
+    try:
+        pid, wid = ray_tpu_torch.get(_worker_of_this_task.remote(), timeout=60)
+        path = f"/tmp/rtpt-w-{wid}.sock"
+        assert os.path.exists(path)
+        os.kill(pid, signal.SIGKILL)
+        deadline = time.monotonic() + 30
+        while os.path.exists(path):
+            assert time.monotonic() < deadline, f"{path} outlived its worker"
+            time.sleep(0.05)
+        # The runtime goes on: a new worker takes the next task.
+        assert ray_tpu_torch.get(_worker_of_this_task.remote(), timeout=60)[0] != pid
+    finally:
+        if cluster is None:
+            ray_tpu_torch.shutdown()
+        else:
+            cluster.shutdown()
+
+
+@ray_tpu_torch.remote
+def _leaf(x):
+    return x + 1
+
+
+@ray_tpu_torch.remote
+def _local_lease_then_the_heads_route():
+    import os
+    import time as _t
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_client
+
+    rt.get(_leaf.remote(0), timeout=60)  # ships the function through the head
+    rt.get(_leaf.remote(1), timeout=60)  # leased from this node's raylet
+    client = global_client()
+    with client._lease_lock:
+        warm = [lease["raylet"] for pool in client._leases.values() for lease in pool]
+    os.environ.pop("RAY_TPU_TORCH_LOCAL_RAYLET")
+    _t.sleep(1.5)  # the idle lease goes home (idle 0.5 s, reaper every 0.1 s)
+    return warm, rt.get(_leaf.remote(2), timeout=30)  # needs the CPU that lease held
+
+
+def test_a_raylet_lease_goes_home_after_the_process_stops_leasing_locally():
+    """A node of 2 CPUs: this task holds one, a warm raylet lease the
+    other. Once the lease is back at the raylet, a task through the head
+    runs on the freed CPU; a lost return left it waiting forever."""
+    from ray_tpu_torch.cluster_utils import DaemonCluster
+
+    cluster = DaemonCluster(head_node_args={"num_cpus": 0, "tcp_port": 0})
+    try:
+        cluster.add_node(num_cpus=2)
+        warm, out = ray_tpu_torch.get(_local_lease_then_the_heads_route.remote(), timeout=120)
+        assert warm == [True] and out == 3
+    finally:
+        cluster.shutdown()
