@@ -4,6 +4,8 @@ and on four where the host has them (phase 30).
 
     python3 chip_smoke.py               # phases 1-30
     python3 chip_smoke.py --phase 30    # phases 1-2, 5 and 30 alone
+    python3 chip_smoke.py --phase 30c-bf16  # phases 1-2, then the bf16
+                                            # tensor split (a measurement)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -509,6 +511,13 @@ MESH_CASES = (
     ("tensor capacity", dict(data=2, tensor=2), "capacity", "float32"),
 )
 MESH_TIMED_STEPS = 1
+# `--phase 30c-bf16`: the tensor case in bf16 on both sides, a measurement
+# the default run does not make: BF16_SPLIT_STEPS steps of mixtral-small on
+# data x tensor over NCCL beside the same steps on one card, with the loss
+# gap and the tokens whose top-k experts the split moved, per step and
+# layer.
+BF16_SPLIT_AXES = dict(data=2, tensor=2)
+BF16_SPLIT_STEPS = 8
 # Phase 27b: the C client's prompt (ids from RandomState(2)) and its calls.
 C_PROMPT_LEN, C_CALLS = 512, 10
 # Phase 28: the runtime under faults, on a runtime of the phase's own with
@@ -5098,6 +5107,101 @@ def phase_nccl(A, card, cards, before, in_process, ring_host, mesh_single):
     return launches
 
 
+def routes_moved(one, ranks):
+    """Tokens whose top-k experts differ between a split and one process,
+    by step and layer, over the whole batch: each block counted once (on
+    its tensor rank 0) against one process's choices for the same
+    tokens (`launch.mixtral_routes`)."""
+    moved = []
+    for s, layers in enumerate(one):
+        row = []
+        for layer, picks in enumerate(layers):
+            n = 0
+            for r in ranks:
+                if r["tensor_rank"] == 0:
+                    (r0, r1), (c0, c1) = r["block"]
+                    n += int((r["routes"][s][layer] != picks[r0:r1, c0:c1]).any(-1).sum())
+            row.append(n)
+        moved.append(row)
+    return moved
+
+
+def phase_bf16_split(card, cards, before, spec=None, backend="nccl"):
+    """`--phase 30c-bf16`: 27a's tensor case (`BF16_SPLIT_AXES`,
+    "capacity") in the spec's dtypes, bf16 on the card, over
+    `backend` beside one process, for BF16_SPLIT_STEPS steps. Prints the
+    loss gap and the tokens the split moved between experts (`routes_moved`)
+    per step and layer; nothing is held to RING_LOSS_RTOL. Returns them,
+    or None where the host has fewer cards than ranks."""
+    import numpy as np
+    import torch
+    from contextlib import nullcontext
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.mixtral import CONFIGS, MixtralForCausalLM, moe_lm_loss
+    from ray_tpu_torch.parallel.launch import mixtral_routes, run_mixtral_routes, spawn
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train import train_step
+
+    spec = spec or mesh_spec(steps=BF16_SPLIT_STEPS)
+    nccl, device, steps = backend == "nccl", spec["device"], spec["steps"]
+    ranks = math.prod(BF16_SPLIT_AXES.values())
+    if nccl and cards < ranks:
+        print(f"30c-bf16: needs {ranks} cards, this host has {cards}; nothing runs", flush=True)
+        return None
+    cfg = replace(CONFIGS[spec["model"]], moe_dispatch="capacity",
+                  param_dtype=getattr(torch, spec["param_dtype"]),
+                  dtype=getattr(torch, spec["dtype"]))
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (spec["batch"], spec["seq"]))
+    model = MixtralForCausalLM(cfg, device=device)
+    ids_d = torch.as_tensor(ids, dtype=torch.long, device=device)
+    targets = torch.roll(ids_d, -1, 1)
+    t0 = time.perf_counter()
+    one = mixtral_routes(model, ids_d, steps,
+                         lambda opt: train_step(model, opt, ids_d, targets, moe_lm_loss))
+    one_s = time.perf_counter() - t0
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with all_cards(before) if nccl else nullcontext():
+        res = spawn(run_mixtral_routes, ranks, MeshSpec(**BF16_SPLIT_AXES), cfg, ids, steps,
+                    *(("cpu",) if device == "cpu" else ()), deadline_s=NCCL_DEADLINE_S,
+                    backend=backend)
+    split_s = time.perf_counter() - t0
+    if nccl:
+        _on_own_cards("30c-bf16", res, ranks)
+    losses = res[0]["losses"]
+    check(all(r["losses"] == losses for r in res), "30c-bf16: ranks report different losses")
+    check(all(math.isfinite(x) for x in losses + one["losses"]),
+          f"30c-bf16: a loss is not finite: {losses} against {one['losses']}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    moved = routes_moved(one["routes"], res)
+    tokens = spec["batch"] * spec["seq"]
+    axes_s = " x ".join(f"{a} {n}" for a, n in BF16_SPLIT_AXES.items())
+    for s, (a, b, gap, row) in enumerate(zip(losses, one["losses"], gaps, moved)):
+        print(f"30c-bf16 step {s}: loss {a:.6f} on {axes_s}, {b:.6f} on one card, relative "
+              f"gap {gap:.3e}; tokens moved per layer {row} of {tokens}", flush=True)
+    where = f"{ranks} cards over NCCL" if nccl else f"{ranks} ranks over {backend}"
+    print(f"30c-bf16: {spec['model']} b{spec['batch']} s{spec['seq']} ({cfg.moe_dispatch}, "
+          f"{spec['param_dtype']} parameters, {spec['dtype']} compute) on {card}, {where}, "
+          f"{steps} steps: largest relative loss gap {max(gaps):.3e} (27a and 30c hold the "
+          f"float32 case to {RING_LOSS_RTOL}; this is a measurement), tokens moved per layer "
+          f"{min(map(min, moved))}-{max(map(max, moved))} of {tokens}; one card "
+          f"{one_s:.1f} s, the split {split_s:.1f} s", flush=True)
+    return {"losses": losses, "one_card_losses": one["losses"], "relative_gaps": gaps,
+            "tokens_moved": moved, "tokens": tokens}
+
+
+def phase30c_bf16_alone(card, cards, before) -> int:
+    """`chip_smoke.py --phase 30c-bf16`: `phase_bf16_split` alone; prints
+    its numbers as the last line."""
+    out = phase_bf16_split(card, cards, before)
+    phase_done("30c-bf16")
+    print(json.dumps({"bf16_split": out}), flush=True)
+    return 0 if out is not None else 1
+
+
 def phase30_alone(A, card, cards, before) -> int:
     """`chip_smoke.py --phase 30`: phase 5's steps (30e's yardstick), then
     phase 30 alone; prints its launches per rank as the last line."""
@@ -5162,6 +5266,8 @@ def main() -> int:
     report_build(_build)
     if sys.argv[1:] == ["--phase", "30"]:
         return phase30_alone(A, card, cards, before)
+    if sys.argv[1:] == ["--phase", "30c-bf16"]:
+        return phase30c_bf16_alone(card, cards, before)
     try:
         import gymnasium
 

@@ -168,6 +168,11 @@ class CoreClient:
         self._direct_buffer: Dict[bytes, list] = {}  # aid -> specs awaiting route
         self._direct_results: Dict[bytes, Any] = {}  # oid -> Future(fields)
         self._direct_oids: Dict[bytes, set] = {}  # aid -> unresolved oids
+        # Workers (leases) and actors this process has pushed calls to
+        # since its last state read: their batched completions are its
+        # writes, which the read's barrier waits for (state_read).
+        self._read_barrier_workers: set = set()
+        self._read_barrier_actors: set = set()
         # Leased-worker pools per scheduling class (direct task transport).
         self._lease_lock = threading.Lock()
         self._leases: Dict[Any, list] = {}
@@ -446,7 +451,10 @@ class CoreClient:
                     loc = self.store.location_of(ObjectID(oid))
                 except Exception:  # noqa: BLE001  # raylint: disable=swallowed-fault -- no local copy: the reconcile entry goes without a location and the head keeps its own
                     loc = None
-                items.append((oid, loc, borrowers))
+                # An inline-only put goes with its bytes, which the
+                # restarted head may never have persisted.
+                inline = self._tracker.inline_of(oid) if loc is None else None
+                items.append((oid, loc, borrowers, inline))
             try:
                 self.conn.send(
                     {
@@ -1035,6 +1043,7 @@ class CoreClient:
             OP_CALL, req_id, tid, spec.function_id, None, spec.args_blob,
             nret, None, None,
         )
+        self._read_barrier_workers.add(lease["worker_id"])
         try:
             conn.send_lazy(frame)
             if queued is None:
@@ -1319,6 +1328,7 @@ class CoreClient:
             OP_CALL, req_id, tid, None, method_name, args_blob, num_returns,
             aid, concurrency_group,
         )
+        self._read_barrier_actors.add(aid)
         owner = self.worker_id.binary()
         refs = [ObjectRef(ObjectID(ob), owner) for ob in oids]
         self._advertise_returns(refs)
@@ -1478,16 +1488,19 @@ class CoreClient:
         ref = ObjectRef(oid, self.worker_id.binary())
         self._tracker.mark_advertised(oid.binary())
         try:
-            self.put_with_id(oid, value)
+            self.put_with_id(oid, value, owned=True)
         except BaseException:
             self._tracker.forget([oid.binary()])
             raise
         return ref
 
-    def put_with_id(self, oid: ObjectID, value: Any) -> Dict[str, Any]:
+    def put_with_id(self, oid: ObjectID, value: Any,
+                    owned: bool = False) -> Dict[str, Any]:
         """Seal a value; small values inline through the GCS, large ones go
         to the shm store (reference: max_direct_call_object_size split
-        between memory store and plasma)."""
+        between memory store and plasma). ``owned``: this process owns
+        the object (put), so it keeps an inline-only value's bytes for a
+        head failover's reconcile."""
         from ..object_ref import _CaptureRefs
 
         with _CaptureRefs() as cap:
@@ -1513,6 +1526,13 @@ class CoreClient:
                 loc = None
             if loc is not None:
                 fields["segment"] = loc
+            elif owned:
+                # No store here holds it: the head's copy is the only
+                # one, and a head killed before its next persist loses
+                # it, acknowledged or not. Kept for the reconcile (the
+                # reference's owner holds small objects in its own
+                # memory store).
+                self._tracker.keep_inline(oid.binary(), blob)
         else:
             name = object_segment_put(self.store, oid, payload, buffers, size)
             fields = {"object_id": oid.binary(), "segment": name, "size": size}
@@ -2060,8 +2080,17 @@ class CoreClient:
 
     def state_read(self, msg: Dict[str, Any]) -> Dict[str, Any]:
         """A request that reads task/object state: flushes this
-        process's own coalesced completion records first so the answer
-        includes everything this process has already observed finish."""
+        process's own coalesced completion records first, and names the
+        workers and actors it pushed calls to since its last read (the
+        head's barrier waits for their batched completions), so the
+        answer includes everything this process has already observed
+        finish."""
+        workers, self._read_barrier_workers = self._read_barrier_workers, set()
+        actors, self._read_barrier_actors = self._read_barrier_actors, set()
+        if workers:
+            msg["flush_workers"] = list(workers)
+        if actors:
+            msg["flush_actors"] = list(actors)
         if self.pre_state_read_flush is not None:
             self.pre_state_read_flush()
         if self.role != "worker":

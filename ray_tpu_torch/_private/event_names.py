@@ -95,6 +95,9 @@ EVENTS_BY_CATEGORY = {
             "HEAD_DOWN", "HEAD_RECONNECT", "RECONCILE_BEGIN",
             "RECONCILE_CLAIM", "RECONCILE_END", "GHOSTS_LOST",
             "RESUBMITS_DROPPED",
+            # A state read's barrier gave up on a worker whose results
+            # the reader holds (gcs._barrier_flush_events).
+            "READ_BARRIER_INCOMPLETE",
             # Membership fencing (incarnation/epoch protocol): a stale
             # node/client message rejected, a stale actor-epoch result
             # rejected, and a zombie raylet draining itself after

@@ -1439,10 +1439,18 @@ class GcsServer:
             # same batch). Exactly-one-side-effect mirrors the actor
             # epoch fence above.
             return
+        name = spec.name if spec else msg.get("name", "?")
+        t_start = msg.get("t_start")
+        if t_start:
+            # A direct or leased call: the head never dispatched it, so
+            # it recorded no RUNNING. The worker's own start stamp takes
+            # its place, or the timeline (state.timeline) would drop the
+            # task's span for want of a start.
+            self.task_events.append((task_id, name, "RUNNING", t_start, wid))
         self.task_events.append(
             (
                 task_id,
-                spec.name if spec else msg.get("name", "?"),
+                name,
                 "FAILED" if error_blob is not None else "FINISHED",
                 time.time(),
                 wid,
@@ -2231,9 +2239,10 @@ class GcsServer:
         """A reconnecting owner re-advertises the objects it OWNS plus
         their live borrow edges (head failover: the restarted head's
         object soft state is rebuilt from bearers of truth, not
-        persisted). Each item is (oid, location-or-None, [borrowers]);
-        a location means the owner's local store still holds the sealed
-        bytes, so the entry can answer gets immediately."""
+        persisted). Each item is (oid, location-or-None, [borrowers],
+        inline-or-None); a location means the owner's local store still
+        holds the sealed bytes, and inline bytes are an inline-only put
+        the owner kept, so the entry can answer gets immediately."""
         _chaos.kill_point("gcs.recovery")
         cid = msg["client"]
         claimed = 0
@@ -2241,7 +2250,8 @@ class GcsServer:
         with self._lock:
             nid = state.get("obj_node_id")
             node_id = NodeID(nid) if nid else self.head_node.node_id
-            for oid, loc, borrowers in msg.get("owned", ()):
+            for oid, loc, borrowers, *rest in msg.get("owned", ()):
+                inline = rest[0] if rest else None
                 entry = self.objects.setdefault(oid, ObjectEntry())
                 if entry.owner is None:
                     entry.owner = cid
@@ -2260,6 +2270,16 @@ class GcsServer:
                     entry.status = READY
                     entry.segment = loc
                     entry.node_id = node_id
+                    entry.last_access = time.time()
+                    self._notify_object(entry)
+                elif inline is not None and entry.status == PENDING:
+                    # An inline-only put this head never persisted (or
+                    # knows only as a dependency of a task resubmitted
+                    # since): its owner's bytes. Left PENDING, a task
+                    # pinning it waited forever.
+                    entry.status = READY
+                    entry.inline = inline
+                    entry.size = len(inline)
                     entry.last_access = time.time()
                     self._notify_object(entry)
                 elif entry.status == PENDING:
@@ -2782,63 +2802,108 @@ class GcsServer:
 
     # ------------------------------------------------------------ state API
 
-    def _barrier_flush_events(
-        self, timeout: float = 0.25, exclude_wid: Optional[bytes] = None
-    ) -> None:
+    #: A read barrier waits this long for a worker whose completions the
+    #: reader does not hold (best effort: they are not its writes).
+    _READ_BARRIER_BRIEF_S = 0.25
+    #: ... and up to this long, while the worker lives, for one whose
+    #: completions it holds (they are its writes).
+    _READ_BARRIER_HELD_S = 30.0
+
+    def _barrier_flush_events(self, state, msg) -> None:
         """Read-your-writes for task/object listings. Completions from
         direct/leased calls are coalesced by each worker's _DoneBatcher
         (worker_main.py) for a few ms before the GCS sees them, so a
         list issued right after get() could miss tasks the caller knows
-        finished. Ask every live worker to flush and wait briefly for
-        acks — the submit hot path stays batched; the rare observability
-        read pays one round-trip (reference: the state API forces a
-        task-event buffer flush on read, task_event_buffer.h).
+        finished. Ask every live worker to flush and wait for acks — the
+        submit hot path stays batched; the rare observability read pays
+        one round-trip (reference: the state API forces a task-event
+        buffer flush on read, task_event_buffer.h). A worker's ack
+        follows its flushed batch on one connection, so once it is in,
+        so are that worker's completions.
 
-        ``exclude_wid``: when the listing request came FROM a worker, its
-        conn reader thread is the one blocked in this barrier — pinging
-        it would deadlock until timeout (its ack could never be
-        dispatched). The worker flushes its own batcher client-side
+        The reader names the workers and actors it pushed calls to since
+        its last read (``flush_workers``, ``flush_actors``;
+        client.state_read): their completions are results it already
+        holds. The read waits for each of those workers' acks while the
+        worker lives (a loaded host can take longer than the brief window
+        to answer, and the read then missed completions its caller had
+        seen); for the rest it waits ``_READ_BARRIER_BRIEF_S``. A held
+        worker that has not answered within ``_READ_BARRIER_HELD_S`` is
+        recorded (READ_BARRIER_INCOMPLETE), never silently skipped.
+
+        When the listing request came FROM a worker, its conn reader
+        thread is the one blocked in this barrier — pinging it would
+        deadlock until timeout (its ack could never be dispatched), so
+        it is left out. The worker flushes its own batcher client-side
         before sending the request instead (state/api.py _list)."""
+        exclude_wid = state.get("worker_id")
+        held = set(msg.get("flush_workers") or ())
         with self._lock:
-            conns = [
-                w.conn
+            for aid in msg.get("flush_actors") or ():
+                actor = self.actors.get(aid)
+                if actor is not None and actor.worker_id is not None:
+                    held.add(actor.worker_id.binary())
+            targets = [
+                (w.worker_id.binary(), w.conn)
                 for w in self.workers.values()
                 if w.conn is not None
                 and w.state != W_STARTING
                 and w.worker_id.binary() != exclude_wid
             ]
-            if not conns:
+            if not targets:
                 return
             self._flush_token += 1
             token = self._flush_token
+            pending = {wid for wid, _ in targets}
             entry: Dict[str, Any] = {
-                "need": 0, "got": 0, "ev": threading.Event()
+                "pending": pending,
+                "held": pending & held,
+                "all": threading.Event(),
+                "held_in": threading.Event(),
             }
+            if not entry["held"]:
+                entry["held_in"].set()
             self._flush_waits[token] = entry
-        sent = 0
-        for conn in conns:
+        for wid, conn in targets:
             try:
                 conn.send({"type": "flush_events", "token": token})
-                sent += 1
             except ConnectionLost:
-                pass
-        with self._lock:
-            entry["need"] = sent
-            if entry["got"] >= sent:
-                entry["ev"].set()
-        if sent:
-            entry["ev"].wait(timeout)
+                with self._lock:
+                    self._barrier_acked(entry, wid)
+        entry["all"].wait(self._READ_BARRIER_BRIEF_S)
+        deadline = time.monotonic() + self._READ_BARRIER_HELD_S
+        while not entry["held_in"].wait(0.1):
+            with self._lock:
+                for wid in list(entry["held"]):
+                    w = self.workers.get(wid)
+                    if w is None or w.state == W_DEAD or w.conn is None \
+                            or w.conn.closed:
+                        self._barrier_acked(entry, wid)
+                missing = list(entry["held"])
+            if missing and time.monotonic() >= deadline:
+                _events.record(
+                    _events.HEAD, "read_barrier", "READ_BARRIER_INCOMPLETE",
+                    {"workers": [wid.hex()[:12] for wid in missing]},
+                )
+                break
         with self._lock:
             self._flush_waits.pop(token, None)
+
+    @staticmethod
+    def _barrier_acked(entry: Dict[str, Any], wid: bytes) -> None:
+        """Caller holds self._lock."""
+        entry["pending"].discard(wid)
+        entry["held"].discard(wid)
+        if not entry["pending"]:
+            entry["all"].set()
+        if not entry["held"]:
+            entry["held_in"].set()
 
     def _h_events_flushed(self, state, msg):
         with self._lock:
             entry = self._flush_waits.get(msg.get("token"))
-            if entry is None:
-                return
-            entry["got"] += 1
-            if entry["need"] and entry["got"] >= entry["need"]:
-                entry["ev"].set()
+            if entry is not None:
+                self._barrier_acked(entry, state.get("worker_id"))
 
     def _h_list_state(self, state, msg):
         """Typed state listing for ray_tpu_torch.util.state (reference:
@@ -2847,7 +2912,7 @@ class GcsServer:
         limit = msg.get("limit", 1000)
         filters = msg.get("filters") or []
         if kind in ("tasks", "objects"):
-            self._barrier_flush_events(exclude_wid=state.get("worker_id"))
+            self._barrier_flush_events(state, msg)
         with self._lock:
             if kind == "actors":
                 items = [
@@ -2989,7 +3054,7 @@ class GcsServer:
         """Flight-recorder read: barrier-flush the workers (their rings
         piggyback on the done-batcher flush the barrier forces), drain
         this process's ring, then filter the aggregator."""
-        self._barrier_flush_events(exclude_wid=state.get("worker_id"))
+        self._barrier_flush_events(state, msg)
         self._drain_local_events()
         items = self.events.list(
             entity=msg.get("entity"),
@@ -3041,7 +3106,7 @@ class GcsServer:
     def _h_get_task_events(self, state, msg):
         # Timeline/summary reads the same batched deque as list_state:
         # same read-your-writes barrier.
-        self._barrier_flush_events(exclude_wid=state.get("worker_id"))
+        self._barrier_flush_events(state, msg)
         with self._lock:
             events = [
                 {

@@ -34,7 +34,7 @@ bookkeeping declared below happens in a ``# raylint: applier-only``
 method, all of which hold ``self._lock`` — the tracker's equivalent
 of the directory's single applier thread.
 """
-# raylint: guarded-attrs=_counts,_owner_of,_dirty,_zeroed,_advertised,_borrows,_unacked,_dead_borrowers
+# raylint: guarded-attrs=_counts,_owner_of,_dirty,_zeroed,_advertised,_borrows,_unacked,_dead_borrowers,_inline
 from __future__ import annotations
 
 import threading
@@ -109,6 +109,10 @@ class OwnerRefTracker:
         # a flush racing the conn swap would ship a stale seq and
         # poison the new sequencer's baseline).
         self._gen_seen = 0
+        # Owned oids -> their serialized bytes, where no store of this
+        # process holds them (an inline-only put): what a head
+        # failover's reconcile sends for them. Kept until the release.
+        self._inline: Dict[bytes, bytes] = {}
         # Borrowers swept by borrower_died; late borrow adds for them
         # are stale and must be ignored (see DEAD_BORROWER_CAP).
         self._dead_borrowers: "OrderedDict[bytes, None]" = OrderedDict()
@@ -171,11 +175,23 @@ class OwnerRefTracker:
             self._owner_of[oid] = self._self_id
 
     # raylint: applier-only
+    def keep_inline(self, oid: bytes, blob: bytes) -> None:
+        """An owned object's bytes that only the head holds besides this
+        tracker (see ``_inline``)."""
+        with self._lock:
+            self._inline[oid] = blob
+
+    def inline_of(self, oid: bytes) -> Optional[bytes]:
+        with self._lock:
+            return self._inline.get(oid)
+
+    # raylint: applier-only
     def forget(self, oids) -> None:
         """Explicit free(): drop all bookkeeping so the instances still
         alive cannot emit retractions for an entry already gone."""
         with self._lock:
             for oid in oids:
+                self._inline.pop(oid, None)
                 self._counts.pop(oid, None)
                 self._owner_of.pop(oid, None)
                 self._advertised.discard(oid)
@@ -385,6 +401,7 @@ class OwnerRefTracker:
                     continue
                 if oid in self._advertised:
                     self._advertised.discard(oid)
+                    self._inline.pop(oid, None)
                     release.append(oid)
                 # Never-advertised owned oids (flapped within one
                 # window before submission registered) send nothing.

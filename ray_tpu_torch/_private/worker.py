@@ -62,6 +62,14 @@ def is_initialized() -> bool:
     return _global.connected
 
 
+def current_session() -> Optional[CoreClient]:
+    """What identifies the session this process is in: its client, or
+    None outside one. A background loop that calls into the runtime keeps
+    the one it started under and ends once this changes (a shutdown, or
+    a shutdown and a new init), so it never reaches a later session."""
+    return _global.client
+
+
 def init(
     address: Optional[str] = None,
     *,

@@ -473,8 +473,7 @@ class WorkerRuntime:
                         fn = cloudpickle.loads(blob)
                         self.fn_cache[fid] = fn
                     name = getattr(fn, "__name__", "task")
-                if _rec.enabled:
-                    t_start = time.time()
+                t_start = time.time()
                 if args_blob == _EMPTY_ARGS_BLOB:
                     value = fn()
                 else:
@@ -552,6 +551,9 @@ class WorkerRuntime:
                 "name": name,
                 "results": dict_results,
                 "error": error_blob,
+                # The head never dispatched this call: the start it
+                # records for the task is this one.
+                "t_start": t_start or t_fork,
             }
         )
         self._executing.pop(tid, None)
@@ -847,13 +849,17 @@ class WorkerRuntime:
                     return await method(*args, **kwargs)
             return await method(*args, **kwargs)
 
+        t_start = time.time()
         fut = asyncio.run_coroutine_threadsafe(runner(), self._aio_loop)
-        fut.add_done_callback(lambda f: self._finish_async(spec, f, origin))
+        fut.add_done_callback(
+            lambda f: self._finish_async(spec, f, origin, t_start)
+        )
 
-    def _finish_async(self, spec: TaskSpec, fut, origin=None):
+    def _finish_async(self, spec: TaskSpec, fut, origin=None,
+                      t_start: float = 0.0):
         exc = fut.exception()
         value = None if exc is not None else fut.result()
-        self._report_done(spec, value, exc, origin)
+        self._report_done(spec, value, exc, origin, t_start=t_start)
 
     def _seal_value(self, oid_bytes: bytes, value: Any) -> Dict[str, Any]:
         """Serialize one return value into result fields (inline payload
@@ -962,7 +968,8 @@ class WorkerRuntime:
                 return
 
     def _report_done(self, spec: TaskSpec, value: Any,
-                     exc: Optional[BaseException], origin=None):
+                     exc: Optional[BaseException], origin=None,
+                     t_start: float = 0.0):
         return_ids = spec.return_object_ids()
         results = [{"object_id": oid.binary()} for oid in return_ids]
         error_blob = None
@@ -1049,14 +1056,17 @@ class WorkerRuntime:
                 # (gcs._barrier_flush_events) taken right after the
                 # caller's get() could flush an empty batcher and miss
                 # this record.
-                self._done_batcher.add(
-                    {
-                        "task_id": spec.task_id.binary(),
-                        "name": spec.name,
-                        "results": results,
-                        "error": error_blob,
-                    }
-                )
+                item = {
+                    "task_id": spec.task_id.binary(),
+                    "name": spec.name,
+                    "results": results,
+                    "error": error_blob,
+                }
+                if t_start:
+                    # The head never dispatched this call: the start
+                    # it records for the task is this one.
+                    item["t_start"] = t_start
+                self._done_batcher.add(item)
             try:
                 if lazy:
                     peer.send_lazy(reply)
@@ -1143,6 +1153,7 @@ class WorkerRuntime:
         )
         _events.set_task_context(spec.task_id.hex())
         t_exec0 = time.monotonic()
+        t_start = time.time()
         try:
             value = self._run_user_code(spec)
             exc = None
@@ -1170,7 +1181,7 @@ class WorkerRuntime:
             t_end = time.time() if _rec.enabled else 0.0
         else:
             t_end = time.time() if _rec.enabled else 0.0
-            self._report_done(spec, value, exc, origin)
+            self._report_done(spec, value, exc, origin, t_start=t_start)
             self._executing.pop(tid_b, None)
             self._cancelled.discard(tid_b)
         # t_fork truthy too: a mid-execution toggle-on must not ship a

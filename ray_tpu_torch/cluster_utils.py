@@ -14,8 +14,8 @@ Reference: python/ray/cluster_utils.py:135. Two levels of realism:
 from __future__ import annotations
 
 import os
+import re
 import secrets
-import socket
 import subprocess
 import sys
 import threading
@@ -110,12 +110,11 @@ class SupervisedHead:
     ):
         os.makedirs(session_dir, exist_ok=True)
         self.session_dir = session_dir
-        if port is None:
-            s = socket.socket()
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-            s.close()
-        self.port = int(port)
+        # No port given: the first head binds one of the kernel's choice
+        # and reports it ("head up: tcp=..."), and every restart takes
+        # the same. A port picked here and bound later by the head could
+        # be taken between the two by another process on a busy host.
+        self.port = int(port or 0)
         self.authkey = authkey or secrets.token_bytes(16)
         self.num_cpus = num_cpus
         self._env = dict(env or {})
@@ -165,8 +164,10 @@ class SupervisedHead:
                 raise RuntimeError(f"head exited during startup: {tail}")
             try:
                 with open(log_path, "rb") as f:
-                    if b"head up" in f.read():
-                        break
+                    up = re.search(rb"head up: tcp=\S+:(\d+)", f.read())
+                if up:
+                    self.port = self.port or int(up.group(1))
+                    break
             except OSError:
                 pass
             time.sleep(0.05)

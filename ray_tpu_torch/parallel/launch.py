@@ -25,8 +25,10 @@ data x fsdp x seq x tensor (`run_sharded_grads`) and its train steps
 (`run_pipeline`) and of a Llama's decoder layers (`run_pipeline_llama`,
 with `sequential_llama` its one-process oracle), and the Mixtral on a
 mesh: its gradients (`run_mixtral_grads`, and `run_mixtral_meshes` for
-several meshes in one world) and train steps (`run_mixtral_train`, and
-`run_mixtral_trains` for several). `data_parallel_loop` is a
+several meshes in one world), train steps (`run_mixtral_train`, and
+`run_mixtral_trains` for several) and the routing a split moves
+(`run_mixtral_routes`, with `mixtral_routes` its one-process side).
+`data_parallel_loop` is a
 `TorchTrainer` worker's loop over the trainer's own process group, with
 `accumulated_llama` its one-process oracle. The train drivers return
 the last step's `timing` spans. They import the port only.
@@ -625,6 +627,65 @@ def run_mixtral_meshes(rank, world_size, cases: Sequence[Tuple[MeshSpec, Any]], 
     in one world."""
     device = _rank_device(device)
     return [_mixtral_grads(spec, cfg, weights, ids, device) for spec, cfg in cases]
+
+
+def router_choices(model, ids: torch.Tensor) -> List[np.ndarray]:
+    """Each MoE layer's top-k experts per token of `ids`, [B, T, K] in
+    ascending order, in a no-grad forward: the routers' outputs read as
+    the layers read them (softmax, then top-k)."""
+    from ..models.mixtral import MoELayer
+
+    picks: List[np.ndarray] = []
+
+    def grab(layer, _inputs, logits):
+        probs = torch.softmax(logits.float(), dim=-1)
+        top = torch.topk(probs, layer.cfg.num_experts_per_tok, dim=-1).indices
+        picks.append(top.sort(dim=-1).values.cpu().numpy())
+
+    hooks = [m.router.register_forward_hook(lambda _m, i, o, layer=m: grab(layer, i, o))
+             for m in model.modules() if isinstance(m, MoELayer)]
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        for h in hooks:
+            h.remove()
+    return picks
+
+
+def mixtral_routes(model, ids: torch.Tensor, steps: int, step) -> Dict[str, Any]:
+    """`steps` train steps of `model` (`step(optimizer)` runs one and
+    returns the loss), each after reading `router_choices` of `ids` on
+    the parameters it starts from: the losses and the choices by step
+    and layer."""
+    optimizer = make_optimizer(model)
+    losses, routes = [], []
+    for _ in range(steps):
+        routes.append(router_choices(model, ids))
+        losses.append(float(step(optimizer)))
+    return {"losses": losses, "routes": routes}
+
+
+def run_mixtral_routes(rank, world_size, spec: MeshSpec, cfg, ids: np.ndarray, steps: int,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """The Mixtral train step on a mesh, as `run_mixtral_train` builds it,
+    for `steps` steps, with the router's top-k choices for this rank's
+    block of `ids` read before each (`mixtral_routes`): the losses, the
+    choices, the rank's coordinates and the (rows, columns) of its
+    block. What a split moves in the routing, against one process's
+    `mixtral_routes` on the whole batch."""
+    from ..models.mixtral import moe_lm_loss
+
+    device = _rank_device(device)
+    mesh = spec.build(device.type)
+    model = _mixtral(cfg, mesh, None, device)
+    ids_l, targets_l = _local_batch(ids, mesh, device)
+    out = mixtral_routes(
+        model, ids_l, steps,
+        lambda opt: train_step(model, opt, ids_l, targets_l, mesh, moe_lm_loss))
+    rows, cols = batch_slices(ids.shape, mesh)
+    return {**out, **_expert_coordinates(mesh), **_where(device),
+            "block": ((rows.start, rows.stop), (cols.start, cols.stop))}
 
 
 def _mixtral_train(spec: MeshSpec, cfg, ids: np.ndarray, steps: int,

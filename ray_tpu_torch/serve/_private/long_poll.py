@@ -54,17 +54,23 @@ class LongPollHost:
 
 class LongPollClient:
     """Runs a poll loop on a daemon thread; invokes ``callbacks[key]``
-    with the new object whenever a key changes."""
+    with the new object whenever a key changes. The loop ends with the
+    session it started in: a runtime shut down without ``serve.shutdown()``
+    leaves no poller calling into the process's next session (the
+    reference's poller dies with its core worker)."""
 
     def __init__(
         self,
         controller_handle,
         callbacks: Dict[str, Callable[[Any], None]],
     ):
+        from ..._private.worker import current_session
+
         self._controller = controller_handle
         self._callbacks = callbacks
         self._snapshot_ids = {k: 0 for k in callbacks}
         self._stopped = threading.Event()
+        self._session = current_session()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -73,8 +79,11 @@ class LongPollClient:
 
     def _loop(self):
         from ... import get
+        from ..._private.worker import current_session
 
         while not self._stopped.is_set():
+            if current_session() is not self._session:
+                return
             try:
                 changes = get(
                     self._controller.listen_for_change.remote(self._snapshot_ids),

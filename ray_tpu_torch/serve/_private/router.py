@@ -105,6 +105,10 @@ class Router:
     many requests are in flight concurrently."""
 
     def __init__(self, deployment_id: DeploymentID, controller_handle):
+        from ..._private.worker import current_session
+
+        # The session this router serves; its threads end with it.
+        self.session = current_session()
         self._dep_id = deployment_id
         self._controller = controller_handle
         self._replica_set = _ReplicaSet()
@@ -259,12 +263,12 @@ class Router:
                 rs.inflight[rid] -= 1
 
     def _push_metrics_loop(self):
-        from ..._private.worker import is_initialized
+        from ..._private.worker import current_session
 
         while not self._stopped.is_set():
-            # Pushing through a dead session would auto-init a fresh
-            # one — exit instead.
-            if not is_initialized():
+            # The session this router began in has ended: pushing now
+            # would reach a later session's cluster (or auto-init one).
+            if current_session() is not self.session:
                 return
             try:
                 self._controller.record_handle_metrics.remote(
@@ -312,9 +316,15 @@ _routers_lock = threading.Lock()
 
 def get_or_create_router(deployment_id: DeploymentID) -> Router:
     from ... import get_actor
+    from ..._private.worker import current_session
 
     with _routers_lock:
         router = _routers.get(deployment_id)
+        if router is not None and router.session is not current_session():
+            # Made in a session that has ended (the runtime was shut
+            # down without serve.shutdown()): its controller is gone.
+            router.shutdown()
+            router = None
         if router is None:
             router = Router(deployment_id, get_actor(CONTROLLER_NAME))
             _routers[deployment_id] = router

@@ -6,7 +6,9 @@ client calling a llama-tiny actor (27b) and the native store and codec
 (27c), through the phase's own code with a spec whose device is the CPU.
 The launches that 27a holds on the card are counted here through the
 kernels' plain versions against the same `mesh_launches`, so a broken
-phase or a wrong count shows before a chip run.
+phase or a wrong count shows before a chip run. `--phase 30c-bf16`'s
+measurement of the tensor split (the loss gap and the tokens the split
+moves between experts) runs through its own code here too, in float32.
 """
 import signal
 
@@ -83,3 +85,23 @@ def test_phase_27b_and_27c_run_at_llama_tiny_on_the_cpu(capsys):
     for tag in ("27b: the C client", "27c: the native object store"):
         line = next(x for x in printed.splitlines() if x.startswith(tag))
         assert line.endswith(": ok"), line
+
+
+def test_phase_30c_bf16_measures_a_split_at_mixtral_tiny_on_the_cpu(capsys):
+    """`chip_smoke.py --phase 30c-bf16`'s measurement through its own code,
+    over 4 gloo ranks at mixtral-tiny in float32: there the split moves no
+    token between experts, and every loss is within 1e-5 of one
+    process's (the limit test_torch_expert.py holds this mesh to)."""
+    from ray_tpu_torch.models.mixtral import CONFIGS
+    import chip_smoke as S
+
+    steps = 3
+    out = S.phase_bf16_split("the CPU (rehearsal)", 4, None, {**_spec(S), "steps": steps},
+                             backend="gloo")
+    layers = CONFIGS["mixtral-tiny"].num_layers
+    assert len(out["losses"]) == len(out["one_card_losses"]) == steps
+    assert [len(row) for row in out["tokens_moved"]] == [layers] * steps
+    assert all(n == 0 for row in out["tokens_moved"] for n in row), out["tokens_moved"]
+    assert max(out["relative_gaps"]) <= 1e-5, out["relative_gaps"]
+    printed = capsys.readouterr().out
+    assert sum(x.startswith("30c-bf16 step ") for x in printed.splitlines()) == steps

@@ -50,6 +50,41 @@
   behind (only a clean exit unlinks it). The head, for the workers it
   forks, and the node daemon, for its own, now remove it once the
   worker's process is gone.
+- The head records a task RUNNING when it dispatches it. A call on a
+  leased worker is never dispatched by the head, so it had no start, and
+  the timeline, which pairs RUNNING with FINISHED, dropped its span
+  (`test_timeline_export` lost its four spans whenever its calls found
+  warm leases). A worker's batched completion of a direct or leased call
+  now carries the call's start, which the head records as its RUNNING.
+- A state read's barrier asked every worker to flush its batched
+  completions and waited 0.25 s for their acks, then answered with what
+  had arrived: on a loaded host a worker's batch could land later, and
+  the listing missed calls its caller had already got back. The caller
+  now names the workers and actors it pushed calls to since its last
+  read, and the head waits for each of those acks while the worker
+  lives (30 s at most, then an event says which it gave up on).
+- A Serve handle's long-poll thread, and its router's metrics thread,
+  outlived a runtime shut down without `serve.shutdown()` and submitted
+  a controller call every 0.5 s into whatever session the process
+  started next (the nine submits that failed
+  `test_gpu_local_leases_sync_head_resource_view`, which counts the
+  head's submits cluster-wide, when an earlier test file in its process
+  had left a handle behind). Both end with the session they began in,
+  and a later session's handle gets a router of its own.
+- A driver with no node pool of its own (one attached to an external
+  head) puts a small value inline through the head only. A head killed
+  after acknowledging such a put and before persisting it came back
+  without it; the owner's reconcile re-claimed it with no location and
+  no bytes, and a task on it, resubmitted across the failover, pinned a
+  PENDING entry forever (the partition soak's remaining traffic wedge).
+  The owner now keeps such a put's bytes while it lives and sends them
+  with its reconcile.
+- A supervised head's port was picked by binding and closing a probe
+  socket and bound later by the head's own process; on a busy host
+  another process took it in between and the head died at startup
+  (`Address already in use`). The head now binds a port of the kernel's
+  choice on its first start, and the supervisor reads it back and keeps
+  it for restarts.
 
 Every test has a deadline after which it fails instead of hanging.
 """
@@ -599,3 +634,233 @@ def test_a_raylet_lease_goes_home_after_the_process_stops_leasing_locally():
         assert warm == [True] and out == 3
     finally:
         cluster.shutdown()
+
+
+def _head_submits():
+    from ray_tpu_torch._private.worker import global_client
+
+    return global_client().request({"type": "msg_counts"})["counts"].get("submit_task", 0)
+
+
+def _gcs():
+    from ray_tpu_torch._private.worker import _global
+
+    return _global.node.gcs
+
+
+def test_a_leased_calls_span_is_in_the_timeline(small_cluster):
+    """Four calls of a function on warm leases, which the head never
+    dispatches: each is a span of the timeline, at least half its sleep
+    long. The head recorded no RUNNING for a leased call, and the
+    timeline dropped its FINISHED for want of a start."""
+
+    @ray_tpu_torch.remote
+    def warm(i):
+        return i
+
+    @ray_tpu_torch.remote
+    def slow():
+        time.sleep(0.05)
+        return 1
+
+    # Idle workers, then leases of the class held by this process.
+    ray_tpu_torch.get([warm.remote(i) for i in range(4)], timeout=60)
+    time.sleep(1.0)
+    ray_tpu_torch.get([warm.remote(i) for i in range(4)], timeout=60)
+    ray_tpu_torch.get([slow.remote() for _ in range(4)], timeout=60)
+    # The head never saw them submitted: they went to leases.
+    assert not [e for e in _gcs().task_events if e[1] == "slow" and e[2] == "PENDING"]
+    spans = [t for t in ray_tpu_torch.timeline() if t["name"] == "slow"]
+    assert len(spans) == 4, spans
+    assert all(t["ph"] == "X" and t["dur"] >= 50_000 * 0.5 for t in spans), spans
+
+
+def test_a_state_read_sees_every_completion_its_caller_holds(small_cluster):
+    """Leased calls' completions reach the head in batches; here each batch
+    is held 0.6 s where the head reads it, as on a loaded host. A listing
+    right after the caller's get holds every call it got back: the head
+    waits for the workers the caller named. It waited 0.25 s for any
+    worker and then answered without them."""
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch.util.state import list_tasks
+
+    @ray_tpu_torch.remote
+    def g(x):
+        return x
+
+    ray_tpu_torch.get([g.remote(i) for i in range(2)], timeout=60)
+    time.sleep(1.0)
+    ray_tpu_torch.get([g.remote(i) for i in range(2)], timeout=60)
+    before = len([t for t in list_tasks() if t["name"] == "g"])
+    # The head shares this process: the rule delays its reads only.
+    chaos.install("task_done_batch=delay:1:600000:600000")
+    try:
+        assert ray_tpu_torch.get([g.remote(i) for i in range(4)], timeout=60) == list(range(4))
+        listed = len([t for t in list_tasks() if t["name"] == "g"])
+    finally:
+        chaos.install("")
+    assert listed == before + 4, (before, listed)
+
+
+def test_serves_pollers_end_with_the_session_they_began_in():
+    """A Serve handle's long-poll and metrics threads, left running by a
+    runtime shut down without `serve.shutdown()`, submitted a controller
+    call every 0.5 s into whatever session this process started next
+    (nine submits in the GPU local-lease case's window). They end with
+    their session, and a handle made in the next session gets a router of
+    its own."""
+    from ray_tpu_torch import serve
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        serve.start(proxy=False)
+
+        @serve.deployment
+        def double(x):
+            return x * 2
+
+        handle = serve.run(double.bind(), name="poller_app", route_prefix=None)
+        assert handle.remote(21).result(timeout_s=30) == 42
+    finally:
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        before = _head_submits()
+        time.sleep(3.0)
+        assert _head_submits() - before == 0
+        serve.start(proxy=False)
+        handle = serve.run(double.bind(), name="poller_app", route_prefix=None)
+        assert handle.remote(4).result(timeout_s=30) == 8
+        serve.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+# Loaded by the first head of `test_an_inline_put_the_head_never_persisted_survives_a_head_failover`
+# (and by nothing after it): no put reaches a persist tick.
+_UNPERSISTED_PUTS_SITECUSTOMIZE = """
+import os
+
+_flag = os.environ.get("RTPT_TEST_UNPERSISTED_PUTS_FLAG")
+if _flag and not os.path.exists(_flag):
+    open(_flag, "w").close()
+    from ray_tpu_torch._private import gcs as _gcs
+
+    _put_ids = set()
+    _put, _snapshot = _gcs.GcsServer._h_put_object, _gcs.GcsServer._snapshot_table
+
+    def _h_put_object(self, state, msg):
+        _put_ids.add(msg["object_id"])
+        return _put(self, state, msg)
+
+    def _snapshot_table(self, table):
+        snap = _snapshot(self, table)
+        if table == "objects":
+            snap = {oid: e for oid, e in snap.items() if oid not in _put_ids}
+        return snap
+
+    _gcs.GcsServer._h_put_object = _h_put_object
+    _gcs.GcsServer._snapshot_table = _snapshot_table
+"""
+
+
+@ray_tpu_torch.remote
+def _total(x):
+    return float(np.sum(x))
+
+
+def test_an_inline_put_the_head_never_persisted_survives_a_head_failover(tmp_path):
+    """A driver with no node pool of its own puts a small value: the head
+    holds its only copy. The head is killed before a persist tick records
+    it; after the failover a task on it runs, and a get returns it. The
+    reconcile re-claimed it without bytes, and the task pinning it waited
+    at the new head forever (the partition soak's traffic wedge)."""
+    from ray_tpu_torch.cluster_utils import DaemonCluster, SupervisedHead, _pinned_pythonpath
+
+    inject = tmp_path / "inject"
+    inject.mkdir()
+    (inject / "sitecustomize.py").write_text(_UNPERSISTED_PUTS_SITECUSTOMIZE)
+    flag = tmp_path / "first-head"
+    head = SupervisedHead(session_dir=str(tmp_path / "sess"), env={
+        "RAY_TPU_TORCH_head_recovery_grace_s": "5",
+        "RTPT_TEST_UNPERSISTED_PUTS_FLAG": str(flag),
+        "PYTHONPATH": os.pathsep.join([str(inject), _pinned_pythonpath()]),
+    })
+    cluster = None
+    try:
+        ray_tpu_torch.init(address=head.address)
+        cluster = DaemonCluster.attach(head.tcp_address, head.authkey)
+        cluster.add_node(num_cpus=2)
+        assert ray_tpu_torch.get(_total.remote(np.ones(4)), timeout=60) == 4.0
+        value = np.arange(1000, dtype=np.float64)  # 8 KB: inline, through the head only
+        ref = ray_tpu_torch.put(value)
+        assert flag.exists()  # the first head ran with its puts unpersisted
+        time.sleep(1.0)  # persist ticks pass; none records the put
+        head.kill()
+        assert head.wait_restarted(1, timeout=60), "head never came back"
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                ray_tpu_torch.cluster_resources()
+                break
+            except Exception:  # noqa: BLE001 - mid-reconnect
+                assert time.monotonic() < deadline, "the driver never reconnected"
+                time.sleep(0.5)
+        assert ray_tpu_torch.get(_total.remote(ref), timeout=30) == float(value.sum())
+        np.testing.assert_array_equal(ray_tpu_torch.get(ref, timeout=30), value)
+    finally:
+        if cluster is not None:
+            for p in list(cluster._daemons):
+                try:
+                    cluster.kill_node(p)
+                except Exception:  # noqa: BLE001
+                    pass
+        try:
+            ray_tpu_torch.shutdown()
+        except Exception:  # noqa: BLE001
+            pass
+        head.stop()
+
+
+class _PortProbes:
+    """A `socket` module whose sockets all report one port as theirs."""
+
+    def __init__(self, port):
+        import socket
+
+        class Probe(socket.socket):
+            def getsockname(self):
+                return ("127.0.0.1", port)
+
+        self.socket = Probe
+
+
+def test_a_supervised_heads_first_start_binds_a_port_no_one_holds(monkeypatch):
+    """A supervised head's port was picked by binding and closing a probe
+    socket, and bound later by the head's own process: on a busy host
+    another process took it in between, and the head died at startup with
+    `Address already in use` (it failed this file's inline-put failover
+    case once on a loaded host). The head now binds a port of the
+    kernel's choice and the supervisor reads it back. Here every probe
+    reports a port this test holds."""
+    import socket
+    import tempfile
+
+    from ray_tpu_torch import cluster_utils
+
+    with socket.socket() as held:
+        held.bind(("127.0.0.1", 0))
+        held.listen()
+        taken = held.getsockname()[1]
+        monkeypatch.setattr(cluster_utils, "socket", _PortProbes(taken), raising=False)
+        with tempfile.TemporaryDirectory() as d:
+            head = cluster_utils.SupervisedHead(session_dir=os.path.join(d, "sess"))
+            try:
+                assert head.port not in (0, taken), head.port
+                ray_tpu_torch.init(address=head.address)
+                assert ray_tpu_torch.cluster_resources().get("CPU", 0.0) == 0.0
+            finally:
+                try:
+                    ray_tpu_torch.shutdown()
+                finally:
+                    head.stop()
